@@ -1,0 +1,248 @@
+"""The STARK prover pipeline on the device.
+
+Counterpart of certificate_stark_tpu/engine/prover.py `Prover.prove`
+(:1166-1404), in the same order: trace LDE -> trace commitment -> constraint
+evaluation and composition -> composition commitment -> OOD frame -> DEEP
+composition -> FRI layers -> grinding -> query openings. The device arrays
+are int64 tensors of Montgomery values; the host runs the public coin between
+phases and assembles the proof. Base field and Rescue commitments only.
+
+The whole LDE domain is one batch in every phase: an H100's 80 GB holds the
+domains this port proves, so the JAX package's memory workarounds (packed
+LDE, domain-chunked evaluation, column-group maps, per-row gathers) have no
+counterpart here.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops import field as F, ntt as NTT
+from ..utils import device as DV, poly_host as PH
+from . import fri as FRI
+from . import merkle as M
+from .air import tile_periodic
+from .boundary import build_boundary_tables
+from .coin import RandomCoin
+from .fieldops import BASE
+from .hasher import get_hasher
+from .proof import Proof, QueryOpening
+
+
+class Prover:
+    coin_journal = None   # set to a list to record the coin's journal
+
+    def __init__(self, air, device=None, hasher=None):
+        opts = air.options
+        if opts.extension_degree != 1:
+            raise NotImplementedError("the port proves over the base field "
+                                      "only (extension_degree=1)")
+        self.device = dev = DV.resolve(device)
+        self.air, self.opts = air, opts
+        self.n, self.w, self.b = air.trace_length, air.trace_width, opts.blowup
+        n, b = self.n, self.b
+        self.bn = bn = b * n
+        self.offset = offset = F.GENERATOR
+        self.gen_big = gen_big = PH.root_of_unity(bn)
+        self.g_trace = g_trace = PH.root_of_unity(n)
+        self.hasher = hasher or get_hasher(opts.hash_fn)
+        self.k = k = air.ce_blowup()
+        self.degrees = air.transition_degrees()
+        self.assertions = air.assertions()
+        comp_deg = k * n - 1
+
+        # LDE-domain points x_j = offset * gen_big^j
+        self.xs = F.mul(F.powers(gen_big, bn, dev), F.const(offset, dev))
+        # transition zerofier inverse (x - g^(n-1)) / (x^n - 1); x^n - 1
+        # takes `b` distinct values on the coset
+        o_n = pow(offset, n, F.P)
+        znum = [pow(o_n * pow(gen_big, j * n, F.P) - 1, F.P - 2, F.P)
+                for j in range(b)]
+        self.zt_inv = F.mul(
+            F.from_ints(znum, dev).repeat(bn // b),
+            F.sub(self.xs, F.const(pow(g_trace, n - 1, F.P), dev)))
+        self.t_adjs = [comp_deg - (d.poly_degree(n) - (n - 1))
+                       for d in self.degrees]
+        self.b_tables = build_boundary_tables(
+            self.assertions, n, bn, offset, g_trace, comp_deg, self.xs)
+        # x^adj on the domain, per degree adjustment
+        self.xpow = {
+            adj: F.mul(F.powers(pow(gen_big, adj, F.P), bn, dev),
+                       F.const(pow(offset, adj, F.P), dev))
+            for adj in sorted(set(self.t_adjs)
+                              | {g.adj for g in self.b_tables})}
+        per = air.periodic_lde(b, offset, dev)
+        self.periodic = (tile_periodic(per, bn) if per is not None else
+                         torch.zeros((0, bn), dtype=torch.int64, device=dev))
+
+    # ------------------------------------------------------------------
+    def _lde_from_coeffs(self, coeffs):
+        return NTT.lde_from_coeffs(coeffs, self.b, self.offset)
+
+    def phase_trace(self, trace):
+        """trace [w, n] -> (coefficients [w, n], LDE [w, bn])."""
+        coeffs = NTT.intt(trace)
+        return coeffs, self._lde_from_coeffs(coeffs)
+
+    def commit(self, rows):
+        """Leaf-hash the columns of rows [r, m] and build the Merkle tree."""
+        return M.MerkleTree.from_leaves(self.hasher,
+                                        self.hasher.hash_columns(rows))
+
+    def phase_composition(self, lde, t_alpha, t_beta, b_alpha, b_beta):
+        """Constraint quotients and boundary terms combined into H(x), split
+        into k column polynomials -> (h_coeffs [k, n], h_lde [k, bn])."""
+        n, k, dev = self.n, self.k, self.device
+        nxt = torch.roll(lde, -self.b, dims=-1)
+        evals = self.air.evaluate_transition(BASE, lde, nxt, self.periodic)
+        # sum_c evals_c * (alpha_c + beta_c * x^adj_c), then / zerofier
+        comp = F.mul_sum(evals, t_alpha[:, None], dim=0)
+        for adj in sorted(set(self.t_adjs)):
+            sel = torch.tensor([i for i, a in enumerate(self.t_adjs)
+                                if a == adj], device=dev)
+            part = F.mul_sum(evals[sel], t_beta[sel, None], dim=0)
+            comp = F.add(comp, F.mul(part, self.xpow[adj]))
+        comp = F.mul(comp, self.zt_inv)
+        # boundary terms, one divisor group at a time
+        index = {id(a): i for i, a in enumerate(self.assertions)}
+        for grp in self.b_tables:
+            ci = torch.tensor([index[id(a)] for a in grp.assertions],
+                              device=dev)
+            num = F.sub(lde[grp.columns], grp.b_evals)          # [g, bn]
+            term = F.add(F.mul_sum(num, b_alpha[ci, None], dim=0),
+                         F.mul(F.mul_sum(num, b_beta[ci, None], dim=0),
+                               self.xpow[grp.adj]))
+            comp = F.add(comp, F.mul(term, grp.inv_z))
+        # coefficients over the coset, then H_i(x) with H = sum x^i H_i(x^k)
+        o_inv = pow(self.offset, F.P - 2, F.P)
+        coeffs = NTT.coset_scale(NTT.intt(comp), o_inv)
+        h_coeffs = coeffs[:k * n].reshape(n, k).T.contiguous()  # [k, n]
+        return h_coeffs, self._lde_from_coeffs(h_coeffs)
+
+    def phase_ood(self, trace_coeffs, h_coeffs, z: int):
+        """Trace polynomials at z and z*g, composition columns at z^k."""
+        dev, n = self.device, self.n
+        zg = z * self.g_trace % F.P
+        zk = pow(z, self.k, F.P)
+        ood_z = F.mul_sum(trace_coeffs, F.powers(z, n, dev), dim=-1)
+        ood_zg = F.mul_sum(trace_coeffs, F.powers(zg, n, dev), dim=-1)
+        ood_h = F.mul_sum(h_coeffs, F.powers(zk, n, dev), dim=-1)
+        return ood_z, ood_zg, ood_h
+
+    def phase_deep(self, lde, h_lde, ood_z, ood_zg, ood_h, g_z, g_zg, g_h,
+                   z: int):
+        """DEEP composition over the LDE domain -> [bn]."""
+        dev = self.device
+        pts = [z, z * self.g_trace % F.P, pow(z, self.k, F.P)]
+        inv_den = F.batch_inv(torch.stack(
+            [F.sub(self.xs, F.const(p, dev)) for p in pts]))    # [3, bn]
+        terms = [
+            F.mul_sum(F.sub(lde, ood_z[:, None]), g_z[:, None], dim=0),
+            F.mul_sum(F.sub(lde, ood_zg[:, None]), g_zg[:, None], dim=0),
+            F.mul_sum(F.sub(h_lde, ood_h[:, None]), g_h[:, None], dim=0),
+        ]
+        deep = F.mul(terms[0], inv_den[0])
+        for t, inv in zip(terms[1:], inv_den[1:]):
+            deep = F.add(deep, F.mul(t, inv))
+        return deep
+
+    # ------------------------------------------------------------------
+    def _draw(self, coin, count):
+        return F.from_ints(coin.draw_felts(count), self.device)
+
+    def prove(self, trace: torch.Tensor, mark=None) -> Proof:
+        """Prove the AIR's statement for `trace` [w, n] (Montgomery int64
+        on the prover's device). `mark(label)`, when given, is called at
+        every phase boundary (chip_smoke.py times the phases with it)."""
+        air, opts, hasher = self.air, self.opts, self.hasher
+        n, w, bn, k = self.n, self.w, self.bn, self.k
+        assert tuple(trace.shape) == (w, n) and trace.device == self.device
+        mark = mark or (lambda label: None)
+
+        trace_coeffs, lde = self.phase_trace(trace)
+        mark("trace LDE")
+        trace_tree = self.commit(lde)
+        coin = RandomCoin(hasher, opts.context_elements(w, n)
+                          + air.pub_inputs_elements(),
+                          journal=self.coin_journal)
+        coin.reseed(trace_tree.root())
+        mark("trace commit")
+
+        nc, nb = len(self.degrees), len(self.assertions)
+        t_alpha, t_beta = self._draw(coin, nc), self._draw(coin, nc)
+        b_alpha, b_beta = self._draw(coin, nb), self._draw(coin, nb)
+        h_coeffs, h_lde = self.phase_composition(lde, t_alpha, t_beta,
+                                                 b_alpha, b_beta)
+        mark("constraint eval + composition")
+        h_tree = self.commit(h_lde)
+        coin.reseed(h_tree.root())
+        mark("composition commit")
+
+        z = coin.draw_felt()
+        oods = self.phase_ood(trace_coeffs, h_coeffs, z)
+        ood_z, ood_zg, ood_h = ([int(v) for v in F.to_ints(o)] for o in oods)
+        coin.reseed(hasher.host_digest(ood_z + ood_zg + ood_h))
+        g_z, g_zg, g_h = (self._draw(coin, w), self._draw(coin, w),
+                          self._draw(coin, k))
+        deep = self.phase_deep(lde, h_lde, *oods, g_z, g_zg, g_h, z)
+        mark("OOD + DEEP")
+
+        fri_layers = []
+        cur = deep
+        size, o, gw = bn, self.offset, self.gen_big
+        fold = opts.fri_folding
+        while size > opts.fri_max_remainder:
+            group = cur.reshape(fold, size // fold)
+            tree = self.commit(group)
+            coin.reseed(tree.root())
+            xi = coin.draw_felt()
+            cur = FRI.fold(cur, xi, o, gw, fold)
+            fri_layers.append(FRI.FriLayer(tree, size, o, gw, group))
+            size //= fold
+            o = pow(o, fold, F.P)
+            gw = pow(gw, fold, F.P)
+        remainder = [int(v) for v in F.to_ints(cur)]
+        coin.reseed(hasher.host_digest(remainder))
+        mark("FRI layers")
+
+        nonce = coin.grind(opts.grinding_bits)
+        coin.reseed(hasher.host_digest([nonce]))
+        positions = coin.draw_indices(opts.num_queries, bn)
+        leaf_idxs, p_cur = [], list(positions)
+        for layer in fri_layers:
+            p_cur = [p % (layer.n // fold) for p in p_cur]
+            leaf_idxs.append(p_cur)
+
+        def opened(rows, idx):             # [r, m] at idx -> [r, Q] ints
+            return F.to_ints(rows.index_select(
+                1, torch.tensor(idx, dtype=torch.int64, device=self.device)))
+
+        lde_host, h_host = opened(lde, positions), opened(h_lde, positions)
+        fri_vals = [opened(layer.group, idx)
+                    for layer, idx in zip(fri_layers, leaf_idxs)]
+        all_paths = M.prove_batch_multi(
+            [trace_tree, h_tree] + [layer.tree for layer in fri_layers],
+            [positions, positions] + leaf_idxs)
+        t_paths, h_paths = all_paths[0], all_paths[1]
+
+        queries = []
+        for qi, pos in enumerate(positions):
+            fri_open = [([int(v) for v in vals[:, qi]], paths[idx[qi]])
+                        for idx, vals, paths in
+                        zip(leaf_idxs, fri_vals, all_paths[2:])]
+            queries.append(QueryOpening(
+                index=int(pos),
+                trace_row=[int(x) for x in lde_host[:, qi]],
+                h_row=[int(x) for x in h_host[:, qi]],
+                trace_path=t_paths[int(pos)],
+                h_path=h_paths[int(pos)],
+                fri_openings=fri_open,
+            ))
+        mark("query openings")
+        return Proof(
+            trace_width=w, trace_length=n, options=opts,
+            pub_inputs=air.pub_inputs_elements(),
+            trace_root=trace_tree.root(), h_root=h_tree.root(),
+            ood_trace_z=ood_z, ood_trace_zg=ood_zg, ood_h=ood_h,
+            fri_roots=[layer.tree.root() for layer in fri_layers],
+            fri_remainder=remainder, pow_nonce=nonce, queries=queries,
+        )

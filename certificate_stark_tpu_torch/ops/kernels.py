@@ -1,0 +1,258 @@
+"""The port's hand-written Hopper kernels, their plain PyTorch versions and
+the build loader.
+
+Each kernel replaces one Pallas kernel of the JAX package
+(certificate_stark_tpu/ops/pallas_kernels.py):
+
+  f63_mul             <- pallas_mul (:176-191), csrc/f63_mul.cu
+  rescue_permutation  <- pallas_rescue_permutation (:142-160),
+                         csrc/rescue_perm.cu
+
+The CUDA sources are compiled at first use with nvcc for sm_90a, one shared
+library with a plain C interface per source (all compiles started together),
+into build/torch_kernels/ at the repository root, and loaded with ctypes. A
+wrapper takes the plain version only for a tensor on the CPU; for a CUDA
+tensor it launches its kernel or raises. `launches` on each wrapper counts
+its kernel launches.
+
+Field elements are canonical Montgomery u64 bit patterns (R = 2^64) held in
+torch.int64. The plain versions split them into 32-bit halves with masks:
+int64 multiply wraps and `>>` is arithmetic.
+"""
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+import torch
+
+P = 4719772409484279809                      # 2^62 + 2^56 + 2^55 + 1
+NPRIME = (-pow(P, -1, 1 << 64)) % (1 << 64)  # 0x417fffffffffffff
+INV_ALPHA = 3146514939656186539
+M32 = 0xFFFFFFFF
+_P_HI = P >> 32
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCES = {"f63_mul": "f63_mul.cu", "rescue_perm": "rescue_perm.cu"}
+_HEADERS = ("f63.cuh",)
+
+_LIBS: dict = {}
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+def mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch f63 Montgomery multiply (broadcasting)."""
+    a0, a1 = a & M32, a >> 32                 # a < 2^63: a1 < 2^31
+    b0, b1 = b & M32, b >> 32
+    p00 = a0 * b0                             # < 2^64, wraps
+    p01 = a0 * b1                             # < 2^63
+    p10 = a1 * b0
+    mid = ((p00 >> 32) & M32) + (p01 & M32) + (p10 & M32)
+    hi = a1 * b1 + (p01 >> 32) + (p10 >> 32) + (mid >> 32)
+    lo = a * b                                # low 64 bits, wrapped
+    m = lo * NPRIME                           # mod 2^64 (NPRIME < 2^63)
+    m0, m1 = m & M32, (m >> 32) & M32
+    q01 = m0 * _P_HI                          # m * p with p = _P_HI*2^32 + 1
+    mphi = m1 * _P_HI + (q01 >> 32) + (((q01 & M32) + m1) >> 32)
+    u = hi + mphi + (lo != 0).to(torch.int64)  # < 2p < 2^63
+    return torch.where(u >= P, u - P, u)
+
+
+def _add_plain(a, b):
+    d = a - (P - b)                           # a + b - p without overflow
+    return torch.where(d < 0, d + P, d)
+
+
+def _mds_plain(s, mds):
+    """s: [14, N]; mds: [14, 14] -> [14, N]."""
+    prod = mul_plain(mds[:, :, None], s[None, :, :])   # [14, 14, N]
+    acc = prod[:, 0]
+    for j in range(1, prod.shape[1]):
+        acc = _add_plain(acc, prod[:, j])
+    return acc
+
+
+def rescue_permutation_plain(state: torch.Tensor, mds: torch.Tensor,
+                             ark: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch Rescue permutation of [14, N] states (the kernel's
+    arithmetic, op for op)."""
+    s = state
+    for r in range(7):
+        s = mul_plain(s, mul_plain(s, s))
+        s = _add_plain(_mds_plain(s, mds), ark[r, :14, None])
+        x = s
+        for bit in bin(INV_ALPHA)[3:]:
+            s = mul_plain(s, s)
+            if bit == "1":
+                s = mul_plain(s, x)
+        s = _add_plain(_mds_plain(s, mds), ark[r, 14:, None])
+    return s
+
+
+# ---------------------------------------------------------------------------
+# build and load
+# ---------------------------------------------------------------------------
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                       "the CUDA toolkit is installed")
+
+
+def _lib_path(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (SOURCES[name],) + _HEADERS:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def build() -> dict:
+    """Compile every kernel source that has no up-to-date library yet, one
+    nvcc process per source, all started together. Returns {name: path}.
+    The compiler's -Xptxas -v report goes to <library>.log."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    paths = {name: _lib_path(name) for name in SOURCES}
+    todo = {n: p for n, p in paths.items() if not os.path.exists(p)}
+    if not todo:
+        return paths
+    nvcc = _nvcc()
+    procs = {}
+    for name, path in todo.items():
+        tmp = path + f".{os.getpid()}.tmp"
+        cmd = [nvcc] + NVCC_FLAGS + ["-o", tmp,
+                                     os.path.join(CSRC, SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT), tmp, path)
+    errors = []
+    for name, (proc, tmp, path) in procs.items():
+        out, _ = proc.communicate()
+        with open(path + ".log", "wb") as fh:
+            fh.write(out)
+        if proc.returncode != 0:
+            errors.append(f"{name}: nvcc exit {proc.returncode}\n"
+                          + out.decode(errors="replace"))
+        else:
+            os.replace(tmp, path)
+    if errors:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+    return paths
+
+
+def _lib(name: str):
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(build()[name])
+        vp, ll = ctypes.c_void_p, ctypes.c_longlong
+        if name == "f63_mul":
+            lib.f63_mul_launch.argtypes = [vp, vp, vp, ll, vp]
+            lib.f63_mul_launch.restype = ctypes.c_int
+        else:
+            lib.rescue_perm_launch.argtypes = [vp, vp, ll, vp, vp, vp]
+            lib.rescue_perm_launch.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def _check(t: torch.Tensor, what: str, device=None, shape=None):
+    if t.dtype != torch.int64:
+        raise TypeError(f"{what}: dtype {t.dtype}, expected torch.int64")
+    if device is not None and t.device != device:
+        raise ValueError(f"{what}: on {t.device}, expected {device}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: not contiguous")
+
+
+def _raise_on(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+def f63_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise Montgomery product of two int64 tensors of one shape."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return mul_plain(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"f63_mul: unsupported device {a.device}")
+    _check(a, "f63_mul a")
+    _check(b, "f63_mul b", a.device, a.shape)
+    out = torch.empty_like(a)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    _raise_on(_lib("f63_mul").f63_mul_launch(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(), stream),
+        "f63_mul")
+    f63_mul.launches += 1
+    return out
+
+
+f63_mul.launches = 0
+
+
+def rescue_permutation(state: torch.Tensor, mds: torch.Tensor,
+                       ark: torch.Tensor) -> torch.Tensor:
+    """Rescue permutation of [14, N] int64 states with Montgomery tables
+    mds [14, 14] and ark [8, 28] on the same device."""
+    if state.device.type == "cpu":
+        return rescue_permutation_plain(state, mds, ark)
+    if state.device.type != "cuda":
+        raise ValueError(f"rescue_permutation: unsupported device "
+                         f"{state.device}")
+    if state.dim() != 2 or state.shape[0] != 14:
+        raise ValueError(f"rescue_permutation: state shape "
+                         f"{tuple(state.shape)}, expected (14, N)")
+    _check(state, "rescue_permutation state")
+    _check(mds, "rescue_permutation mds", state.device, (14, 14))
+    _check(ark, "rescue_permutation ark", state.device, (8, 28))
+    out = torch.empty_like(state)
+    stream = torch.cuda.current_stream(state.device).cuda_stream
+    _raise_on(_lib("rescue_perm").rescue_perm_launch(
+        state.data_ptr(), out.data_ptr(), state.shape[1], mds.data_ptr(),
+        ark.data_ptr(), stream), "rescue_permutation")
+    rescue_permutation.launches += 1
+    return out
+
+
+rescue_permutation.launches = 0
+
+WRAPPERS = (f63_mul, rescue_permutation)
+
+
+def reset_launches():
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+# Callers (ops/field.py mul, ops/rescue.py permutation) take the plain
+# versions on a CUDA tensor only inside `plain_versions()`: chip_smoke.py uses
+# it to prove with the plain versions on the card and compare the bytes.
+_PLAIN = [False]
+
+
+def use_plain(t: torch.Tensor) -> bool:
+    return _PLAIN[0] or t.device.type == "cpu"
+
+
+@contextlib.contextmanager
+def plain_versions():
+    prev, _PLAIN[0] = _PLAIN[0], True
+    try:
+        yield
+    finally:
+        _PLAIN[0] = prev

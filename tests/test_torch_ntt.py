@@ -1,0 +1,74 @@
+"""The port's NTT and LDE (certificate_stark_tpu_torch/ops/ntt.py) against
+the JAX package on the CPU, 3 columns at 2^4..2^10. Tolerance: exact
+equality.
+
+Every size is held against the JAX package's host transform
+(utils/poly_host.py, Python ints); the device transform ops/ntt.py, whose
+XLA:CPU compiles cost seconds per shape, is held at the end sizes."""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+
+from certificate_stark_tpu.ops import field as JF
+from certificate_stark_tpu.ops import ntt as JN
+from certificate_stark_tpu.utils import poly_host as JPH
+from certificate_stark_tpu_torch.ops import field as F
+from certificate_stark_tpu_torch.ops import ntt as N
+from certificate_stark_tpu_torch.utils.convert import (from_jax_limbs,
+                                                       to_jax_limbs)
+
+P = JF.P
+LOGS = list(range(4, 11))
+OFFSET = JF.GENERATOR
+
+
+def _ints(logn):
+    rng = np.random.default_rng(logn)
+    return [[int(v) for v in row] for row in
+            rng.integers(0, P, size=(3, 1 << logn), dtype=np.uint64)]
+
+
+def _host_lde(col, blowup):
+    coeffs = JPH.intt(col)
+    scaled = [c * pow(OFFSET, i, P) % P for i, c in enumerate(coeffs)]
+    return JPH.ntt(scaled + [0] * ((blowup - 1) * len(col)))
+
+
+@pytest.mark.parametrize("logn", LOGS)
+def test_ntt_intt_match_jax_host_transform(logn):
+    cols = _ints(logn)
+    a = F.from_ints(cols, "cpu")
+    assert [list(r) for r in F.to_ints(N.ntt(a))] == \
+        [JPH.ntt(c) for c in cols]
+    assert [list(r) for r in F.to_ints(N.intt(a))] == \
+        [JPH.intt(c) for c in cols]
+
+
+@pytest.mark.parametrize("blowup", [4, 8])
+@pytest.mark.parametrize("logn", LOGS)
+def test_lde_matches_jax_host_transform(logn, blowup):
+    cols = _ints(logn)
+    got = F.to_ints(N.lde(F.from_ints(cols, "cpu"), blowup, OFFSET))
+    assert [list(r) for r in got] == [_host_lde(c, blowup) for c in cols]
+
+
+@pytest.mark.parametrize("logn", [4, 10])
+def test_transforms_match_jax_device_ntt(logn):
+    a_l = JF.from_int(np.array(_ints(logn), dtype=object))
+    a = from_jax_limbs(a_l)
+
+    @jax.jit
+    def ref(x):
+        return (JN.ntt(x), JN.intt(x), JN.coset_scale(x, OFFSET),
+                JN.lde(x, 4, OFFSET))
+
+    exp = [np.asarray(r) for r in ref(jnp.asarray(a_l))]
+    got = [N.ntt(a), N.intt(a), N.coset_scale(a, OFFSET), N.lde(a, 4, OFFSET)]
+    for g, e in zip(got, exp):
+        assert np.array_equal(to_jax_limbs(g), e)
+
+
+def test_roots_of_unity_match_jax():
+    for logn in range(0, 24):
+        assert N.root_of_unity(1 << logn) == JN.root_of_unity(1 << logn)
