@@ -1,103 +1,173 @@
 // Rescue-XLIX permutation over f63 (state width 14, 7 rounds, alpha = 3).
 //
 // Replaces certificate_stark_tpu/ops/pallas_kernels.py
-// `pallas_rescue_permutation` (:142-160, body `_rescue_perm_kernel`
-// :104-139). Template: native/f63.c `rescue_permutation` (:97).
+// `pallas_rescue_permutation` (:143, body `_rescue_perm_kernel` :104-139).
 //
-// One thread per state. The 14 lanes stay in registers for all 7 rounds;
-// the input and output are read and written once, lane-major ([14, N] int64,
-// so neighbouring threads touch neighbouring addresses). The MDS matrix and
-// the round constants (Montgomery form) sit in __constant__ memory: every
-// thread of a warp reads the same entry, which the constant cache broadcasts.
-//
-// Bound on the H100: a permutation is ~12k Montgomery multiplies against
-// 224 bytes of state, and Hopper has no 64-bit integer multiply, so each
-// multiply is a chain of 32-bit integer instructions: the kernel is bound by
-// integer throughput. The inverse s-box x^INV_ALPHA (61 squarings and 32
-// multiplies per lane) is about 76% of the multiplies; it runs the fixed
-// square-and-multiply chain over all 14 lanes at once, which gives 14
-// independent dependency chains per thread to hide multiply latency.
+// Bound on the H100: a permutation moves 224 bytes in and out against some
+// 10^5 32-bit multiplies (chip_smoke.py MULS_PER_PERM), so the kernel is
+// bound by the rate at which the SMs issue integer instructions, and by the
+// latency of one thread's chain of dependent multiplies where a launch has
+// too few states to fill the card (most Merkle levels have 2^14 states or
+// fewer). What the design does about it:
+// - one state per group of 16 threads (lanes 0-13 active, 2 states a warp),
+//   so a launch of N states runs 16N threads and a small Merkle level takes
+//   about 1/14 of the time one thread needs for a whole state. Each thread
+//   keeps its lane, its MDS row (14 values in registers, loaded once from
+//   the device table) and reads its two round constants a round. The
+//   s-boxes are per lane; an MDS layer gathers the 14 lanes of the group
+//   with shuffles;
+// - word-level Montgomery arithmetic (f63.cuh): two 32-bit REDC steps with
+//   no multiply for m, and squarings from three partial products;
+// - one reduction per MDS output: the 14 unreduced 128-bit products of a
+//   row are summed (14 (p-1)^2 < 2^128) and reduced once;
+// - x^INV_ALPHA by the addition chain of ops/kernels.py INV_ALPHA_CHAIN,
+//   61 squarings and 12 multiplies in place of 61 and 32;
+// - the tables are read through the device pointers the wrapper passes:
+//   nothing is copied per launch.
 #include <cuda_runtime.h>
 
 #include "f63.cuh"
 
-#define W 14
+#define W 14        // state width
 #define ROUNDS 7
-#define INV_ALPHA 3146514939656186539ULL  // 62 bits, 33 of them set
+#define GROUP 16    // threads a state: lanes 0-13 active, 14-15 idle
+#define THREADS 128
 
-__constant__ u64 c_mds[W * W];
-__constant__ u64 c_ark[8 * 2 * W];
+// x^INV_ALPHA on L lanes at once, INV_ALPHA = 0b1010111 (01)x27 1:
+// ops/kernels.py INV_ALPHA_CHAIN written out. The lanes run the chain side
+// by side, so that L > 1 gives L independent chains to interleave.
+template <int L>
+__device__ __forceinline__ void inv_sbox(u64 (&y)[L]) {
+    u64 x[L], x2[L], x21[L], x85[L];
+#pragma unroll
+    for (int j = 0; j < L; j++) {
+        x[j] = y[j];
+        x2[j] = f63_msqr(x[j]);
+        u64 x5 = f63_mmul(f63_msqr(x2[j]), x[j]);
+        x21[j] = f63_mmul(f63_msqr(f63_msqr(x5)), x[j]);
+        x85[j] = f63_mmul(f63_msqr(f63_msqr(x21[j])), x[j]);
+        y[j] = f63_mmul(x85[j], x2[j]);  // x^87
+    }
+#pragma unroll 1
+    for (int i = 0; i < 6; i++) {  // y = y^(2^8) * x^85
+#pragma unroll
+        for (int k = 0; k < 8; k++)
+#pragma unroll
+            for (int j = 0; j < L; j++) y[j] = f63_msqr(y[j]);
+#pragma unroll
+        for (int j = 0; j < L; j++) y[j] = f63_mmul(y[j], x85[j]);
+    }
+#pragma unroll
+    for (int k = 0; k < 6; k++)
+#pragma unroll
+        for (int j = 0; j < L; j++) y[j] = f63_msqr(y[j]);
+#pragma unroll
+    for (int j = 0; j < L; j++)
+        y[j] = f63_mmul(f63_msqr(f63_mmul(y[j], x21[j])), x[j]);
+}
 
-__device__ __forceinline__ void mds_apply(u64 s[W]) {
+// Lane `row` of the MDS product: sum_j mds[row][j] * s_j, with s_j the
+// value of lane j of this thread's group, reduced once.
+__device__ __forceinline__ u64 mds_row(const u64 m[W], u64 s) {
+    u32 c[4];
+    u64 s0 = join32(__shfl_sync(0xffffffffu, lo32(s), 0, GROUP),
+                    __shfl_sync(0xffffffffu, hi32(s), 0, GROUP));
+    f63_mul_wide(m[0], s0, c[0], c[1], c[2], c[3]);
+#pragma unroll
+    for (int j = 1; j < W; j++) {
+        u64 sj = join32(__shfl_sync(0xffffffffu, lo32(s), j, GROUP),
+                        __shfl_sync(0xffffffffu, hi32(s), j, GROUP));
+        f63_mac(c, m[j], sj);
+    }
+    return f63_redc_wide(c);
+}
+
+__global__ void __launch_bounds__(THREADS)
+rescue_perm_group(const u64* __restrict__ in, u64* __restrict__ out,
+                  long long n, const u64* __restrict__ mds,
+                  const u64* __restrict__ ark) {
+    const long long col =
+        ((long long)blockIdx.x * THREADS + threadIdx.x) / GROUP;
+    const int lane = threadIdx.x % GROUP;
+    // idle lanes and states past n run row 0 along; no lane reads them
+    const int row = lane < W ? lane : 0;
+    const bool live = lane < W && col < n;
+    u64 m[W];
+#pragma unroll
+    for (int j = 0; j < W; j++) m[j] = __ldg(mds + row * W + j);
+    u64 s[1] = {live ? in[lane * n + col] : 0};
+#pragma unroll 1
+    for (int r = 0; r < ROUNDS; r++) {
+        s[0] = f63_mmul(f63_msqr(s[0]), s[0]);
+        s[0] = f63_add(mds_row(m, s[0]), __ldg(ark + r * 2 * W + row));
+        inv_sbox(s);
+        s[0] = f63_add(mds_row(m, s[0]), __ldg(ark + r * 2 * W + W + row));
+    }
+    if (live) out[lane * n + col] = s[0];
+}
+
+// s = mds * s + c on all 14 lanes of one thread, from tables in shared
+// memory (every thread of a warp reads the same entry: a broadcast).
+__device__ __forceinline__ void mds_lanes(u64 (&s)[W], const u64* m,
+                                          const u64* c) {
     u64 t[W];
 #pragma unroll
     for (int i = 0; i < W; i++) {
-        u64 acc = f63_mmul(c_mds[i * W], s[0]);
+        u32 a[4];
+        f63_mul_wide(m[i * W], s[0], a[0], a[1], a[2], a[3]);
 #pragma unroll
-        for (int j = 1; j < W; j++)
-            acc = f63_add(acc, f63_mmul(c_mds[i * W + j], s[j]));
-        t[i] = acc;
+        for (int j = 1; j < W; j++) f63_mac(a, m[i * W + j], s[j]);
+        t[i] = f63_add(f63_redc_wide(a), c[i]);
     }
 #pragma unroll
     for (int i = 0; i < W; i++) s[i] = t[i];
 }
 
-__global__ void rescue_perm_kernel(const u64* __restrict__ in,
-                                   u64* __restrict__ out, long long n) {
-    long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+// One state per thread: the 14 lanes in registers, the lane chains of the
+// inverse s-box side by side.
+__global__ void __launch_bounds__(THREADS)
+rescue_perm_thread(const u64* __restrict__ in, u64* __restrict__ out,
+                   long long n, const u64* __restrict__ mds,
+                   const u64* __restrict__ ark) {
+    __shared__ u64 t_mds[W * W], t_ark[ROUNDS * 2 * W];
+    for (int i = threadIdx.x; i < W * W; i += THREADS) t_mds[i] = mds[i];
+    for (int i = threadIdx.x; i < ROUNDS * 2 * W; i += THREADS)
+        t_ark[i] = ark[i];
+    __syncthreads();
+    const long long col = (long long)blockIdx.x * THREADS + threadIdx.x;
     if (col >= n) return;
     u64 s[W];
 #pragma unroll
     for (int j = 0; j < W; j++) s[j] = in[j * n + col];
-
 #pragma unroll 1
     for (int r = 0; r < ROUNDS; r++) {
-        // s-box x^3
 #pragma unroll
-        for (int j = 0; j < W; j++) s[j] = f63_mmul(s[j], f63_mmul(s[j], s[j]));
-        mds_apply(s);
-#pragma unroll
-        for (int j = 0; j < W; j++) s[j] = f63_add(s[j], c_ark[r * 2 * W + j]);
-        // inverse s-box x^INV_ALPHA, MSB-first square-and-multiply
-        u64 x[W];
-#pragma unroll
-        for (int j = 0; j < W; j++) x[j] = s[j];
-#pragma unroll 1
-        for (int bit = 60; bit >= 0; bit--) {
-#pragma unroll
-            for (int j = 0; j < W; j++) s[j] = f63_mmul(s[j], s[j]);
-            if ((INV_ALPHA >> bit) & 1ULL) {
-#pragma unroll
-                for (int j = 0; j < W; j++) s[j] = f63_mmul(s[j], x[j]);
-            }
-        }
-        mds_apply(s);
-#pragma unroll
-        for (int j = 0; j < W; j++)
-            s[j] = f63_add(s[j], c_ark[r * 2 * W + W + j]);
+        for (int j = 0; j < W; j++) s[j] = f63_mmul(f63_msqr(s[j]), s[j]);
+        mds_lanes(s, t_mds, t_ark + r * 2 * W);
+        inv_sbox(s);
+        mds_lanes(s, t_mds, t_ark + r * 2 * W + W);
     }
-
 #pragma unroll
     for (int j = 0; j < W; j++) out[j * n + col] = s[j];
 }
 
 // in, out: [14, n] u64 on the device; mds: [14, 14] and ark: [8, 28]
-// Montgomery tables on the device, copied into constant memory on `stream`
-// ahead of the launch.
+// Montgomery tables on the device. threads_per_state picks the layout:
+// GROUP (16) or 1.
 extern "C" int rescue_perm_launch(const void* in, void* out, long long n,
                                   const void* mds, const void* ark,
-                                  void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
-    cudaError_t e = cudaMemcpyToSymbolAsync(c_mds, mds, sizeof(u64) * W * W, 0,
-                                            cudaMemcpyDeviceToDevice, st);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaMemcpyToSymbolAsync(c_ark, ark, sizeof(u64) * 8 * 2 * W, 0,
-                                cudaMemcpyDeviceToDevice, st);
-    if (e != cudaSuccess) return (int)e;
+                                  int threads_per_state, void* stream) {
     if (n <= 0) return 0;
-    const int threads = 128;
-    long long blocks = (n + threads - 1) / threads;
-    rescue_perm_kernel<<<(unsigned)blocks, threads, 0, st>>>(
-        (const u64*)in, (u64*)out, n);
+    cudaStream_t st = (cudaStream_t)stream;
+    long long blocks =
+        (n * threads_per_state + THREADS - 1) / THREADS;
+    if (threads_per_state == GROUP)
+        rescue_perm_group<<<(unsigned)blocks, THREADS, 0, st>>>(
+            (const u64*)in, (u64*)out, n, (const u64*)mds, (const u64*)ark);
+    else if (threads_per_state == 1)
+        rescue_perm_thread<<<(unsigned)blocks, THREADS, 0, st>>>(
+            (const u64*)in, (u64*)out, n, (const u64*)mds, (const u64*)ark);
+    else
+        return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();
 }

@@ -32,9 +32,29 @@ import torch
 
 P = 4719772409484279809                      # 2^62 + 2^56 + 2^55 + 1
 NPRIME = (-pow(P, -1, 1 << 64)) % (1 << 64)  # 0x417fffffffffffff
-INV_ALPHA = 3146514939656186539
+INV_ALPHA = 3146514939656186539              # 0b1010111 (01)x27 1
 M32 = 0xFFFFFFFF
 _P_HI = P >> 32
+
+# x -> x^INV_ALPHA as an addition chain: 61 squarings and 12 multiplies,
+# where square-and-multiply takes 61 and 32. Each step (dst, src, k, w) is
+# dst = src^(2^k) * w, with no multiply where w is None; the last dst is the
+# result. csrc/rescue_perm.cu `inv_sbox` writes the same chain out.
+INV_ALPHA_CHAIN = (
+    ("x2", "x", 1, None), ("x5", "x2", 1, "x"), ("x21", "x5", 2, "x"),
+    ("x85", "x21", 2, "x"), ("y", "x85", 0, "x2"),           # y = x^87
+) + (("y", "y", 8, "x85"),) * 6 + (("y", "y", 6, "x21"), ("y", "y", 1, "x"))
+
+
+def walk_chain(x, square, mul, chain=INV_ALPHA_CHAIN):
+    """x^INV_ALPHA by `chain`, with the given square and multiply."""
+    v = {"x": x}
+    for dst, src, k, w in chain:
+        r = v[src]
+        for _ in range(k):
+            r = square(r)
+        v[dst] = r if w is None else mul(r, v[w])
+    return v[chain[-1][0]]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -42,6 +62,13 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = {"f63_mul": "f63_mul.cu", "rescue_perm": "rescue_perm.cu"}
+# Threads a state in the Rescue kernel's two layouts (csrc/rescue_perm.cu)
+RESCUE_LAYOUTS = {"group": 16, "thread": 1}
+
+
+def rescue_layout(n: int) -> int:
+    """Threads a state for a launch of n states."""
+    return RESCUE_LAYOUTS["group"]
 _HEADERS = ("f63.cuh",)
 
 _LIBS: dict = {}
@@ -84,17 +111,14 @@ def _mds_plain(s, mds):
 
 def rescue_permutation_plain(state: torch.Tensor, mds: torch.Tensor,
                              ark: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch Rescue permutation of [14, N] states (the kernel's
-    arithmetic, op for op)."""
+    """Plain PyTorch Rescue permutation of [14, N] states: the kernel's
+    inverse s-box chain; its MDS sums reduced products (canonical values
+    make any order of the field operations give the same bits)."""
     s = state
     for r in range(7):
         s = mul_plain(s, mul_plain(s, s))
         s = _add_plain(_mds_plain(s, mds), ark[r, :14, None])
-        x = s
-        for bit in bin(INV_ALPHA)[3:]:
-            s = mul_plain(s, s)
-            if bit == "1":
-                s = mul_plain(s, x)
+        s = walk_chain(s, lambda r: mul_plain(r, r), mul_plain)
         s = _add_plain(_mds_plain(s, mds), ark[r, 14:, None])
     return s
 
@@ -160,7 +184,8 @@ def _lib(name: str):
             lib.f63_mul_launch.argtypes = [vp, vp, vp, ll, vp]
             lib.f63_mul_launch.restype = ctypes.c_int
         else:
-            lib.rescue_perm_launch.argtypes = [vp, vp, ll, vp, vp, vp]
+            lib.rescue_perm_launch.argtypes = [vp, vp, ll, vp, vp,
+                                               ctypes.c_int, vp]
             lib.rescue_perm_launch.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
@@ -205,6 +230,18 @@ def f63_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 f63_mul.launches = 0
 
 
+def rescue_launch(state: torch.Tensor, mds: torch.Tensor, ark: torch.Tensor,
+                  threads_per_state: int) -> torch.Tensor:
+    """One launch of the Rescue kernel in the given layout (RESCUE_LAYOUTS)
+    on checked CUDA tensors; not counted."""
+    out = torch.empty_like(state)
+    stream = torch.cuda.current_stream(state.device).cuda_stream
+    _raise_on(_lib("rescue_perm").rescue_perm_launch(
+        state.data_ptr(), out.data_ptr(), state.shape[1], mds.data_ptr(),
+        ark.data_ptr(), threads_per_state, stream), "rescue_permutation")
+    return out
+
+
 def rescue_permutation(state: torch.Tensor, mds: torch.Tensor,
                        ark: torch.Tensor) -> torch.Tensor:
     """Rescue permutation of [14, N] int64 states with Montgomery tables
@@ -220,11 +257,7 @@ def rescue_permutation(state: torch.Tensor, mds: torch.Tensor,
     _check(state, "rescue_permutation state")
     _check(mds, "rescue_permutation mds", state.device, (14, 14))
     _check(ark, "rescue_permutation ark", state.device, (8, 28))
-    out = torch.empty_like(state)
-    stream = torch.cuda.current_stream(state.device).cuda_stream
-    _raise_on(_lib("rescue_perm").rescue_perm_launch(
-        state.data_ptr(), out.data_ptr(), state.shape[1], mds.data_ptr(),
-        ark.data_ptr(), stream), "rescue_permutation")
+    out = rescue_launch(state, mds, ark, rescue_layout(state.shape[1]))
     rescue_permutation.launches += 1
     return out
 
