@@ -1,8 +1,8 @@
 // Elementwise f63 Montgomery multiply, out[i] = a[i] * b[i] * 2^-64 mod p.
 //
 // Replaces certificate_stark_tpu/ops/pallas_kernels.py `pallas_mul` (:176-191,
-// body `_mul_kernel` / `_k_mul`). One thread per element; the product is a
-// 64x64->128 multiply plus a structured-modulus REDC (f63.cuh).
+// body `_mul_kernel` / `_k_mul`). One thread per element; the product is
+// four 32x32->64 partial products plus a word-level REDC (f63.cuh).
 //
 // Bound on the H100: 24 bytes move per element (two reads, one write) against
 // some 25 32-bit integer instructions, so at large n the kernel is bound by

@@ -33,37 +33,23 @@
 #define GROUP 16    // threads a state: lanes 0-13 active, 14-15 idle
 #define THREADS 128
 
-// x^INV_ALPHA on L lanes at once, INV_ALPHA = 0b1010111 (01)x27 1:
-// ops/kernels.py INV_ALPHA_CHAIN written out. The lanes run the chain side
-// by side, so that L > 1 gives L independent chains to interleave.
-template <int L>
-__device__ __forceinline__ void inv_sbox(u64 (&y)[L]) {
-    u64 x[L], x2[L], x21[L], x85[L];
-#pragma unroll
-    for (int j = 0; j < L; j++) {
-        x[j] = y[j];
-        x2[j] = f63_msqr(x[j]);
-        u64 x5 = f63_mmul(f63_msqr(x2[j]), x[j]);
-        x21[j] = f63_mmul(f63_msqr(f63_msqr(x5)), x[j]);
-        x85[j] = f63_mmul(f63_msqr(f63_msqr(x21[j])), x[j]);
-        y[j] = f63_mmul(x85[j], x2[j]);  // x^87
-    }
+// x^INV_ALPHA, INV_ALPHA = 0b1010111 (01)x27 1: ops/kernels.py
+// INV_ALPHA_CHAIN written out, 61 squarings and 12 multiplies.
+__device__ __forceinline__ u64 inv_sbox(u64 x) {
+    u64 x2 = f63_msqr(x);
+    u64 x5 = f63_mmul(f63_msqr(x2), x);
+    u64 x21 = f63_mmul(f63_msqr(f63_msqr(x5)), x);
+    u64 x85 = f63_mmul(f63_msqr(f63_msqr(x21)), x);
+    u64 y = f63_mmul(x85, x2);  // x^87
 #pragma unroll 1
     for (int i = 0; i < 6; i++) {  // y = y^(2^8) * x^85
 #pragma unroll
-        for (int k = 0; k < 8; k++)
-#pragma unroll
-            for (int j = 0; j < L; j++) y[j] = f63_msqr(y[j]);
-#pragma unroll
-        for (int j = 0; j < L; j++) y[j] = f63_mmul(y[j], x85[j]);
+        for (int k = 0; k < 8; k++) y = f63_msqr(y);
+        y = f63_mmul(y, x85);
     }
 #pragma unroll
-    for (int k = 0; k < 6; k++)
-#pragma unroll
-        for (int j = 0; j < L; j++) y[j] = f63_msqr(y[j]);
-#pragma unroll
-    for (int j = 0; j < L; j++)
-        y[j] = f63_mmul(f63_msqr(f63_mmul(y[j], x21[j])), x[j]);
+    for (int k = 0; k < 6; k++) y = f63_msqr(y);
+    return f63_mmul(f63_msqr(f63_mmul(y, x21)), x);
 }
 
 // Lane `row` of the MDS product: sum_j mds[row][j] * s_j, with s_j the
@@ -95,79 +81,25 @@ rescue_perm_group(const u64* __restrict__ in, u64* __restrict__ out,
     u64 m[W];
 #pragma unroll
     for (int j = 0; j < W; j++) m[j] = __ldg(mds + row * W + j);
-    u64 s[1] = {live ? in[lane * n + col] : 0};
+    u64 s = live ? in[lane * n + col] : 0;
 #pragma unroll 1
     for (int r = 0; r < ROUNDS; r++) {
-        s[0] = f63_mmul(f63_msqr(s[0]), s[0]);
-        s[0] = f63_add(mds_row(m, s[0]), __ldg(ark + r * 2 * W + row));
-        inv_sbox(s);
-        s[0] = f63_add(mds_row(m, s[0]), __ldg(ark + r * 2 * W + W + row));
+        s = f63_mmul(f63_msqr(s), s);
+        s = f63_add(mds_row(m, s), __ldg(ark + r * 2 * W + row));
+        s = inv_sbox(s);
+        s = f63_add(mds_row(m, s), __ldg(ark + r * 2 * W + W + row));
     }
-    if (live) out[lane * n + col] = s[0];
-}
-
-// s = mds * s + c on all 14 lanes of one thread, from tables in shared
-// memory (every thread of a warp reads the same entry: a broadcast).
-__device__ __forceinline__ void mds_lanes(u64 (&s)[W], const u64* m,
-                                          const u64* c) {
-    u64 t[W];
-#pragma unroll
-    for (int i = 0; i < W; i++) {
-        u32 a[4];
-        f63_mul_wide(m[i * W], s[0], a[0], a[1], a[2], a[3]);
-#pragma unroll
-        for (int j = 1; j < W; j++) f63_mac(a, m[i * W + j], s[j]);
-        t[i] = f63_add(f63_redc_wide(a), c[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < W; i++) s[i] = t[i];
-}
-
-// One state per thread: the 14 lanes in registers, the lane chains of the
-// inverse s-box side by side.
-__global__ void __launch_bounds__(THREADS)
-rescue_perm_thread(const u64* __restrict__ in, u64* __restrict__ out,
-                   long long n, const u64* __restrict__ mds,
-                   const u64* __restrict__ ark) {
-    __shared__ u64 t_mds[W * W], t_ark[ROUNDS * 2 * W];
-    for (int i = threadIdx.x; i < W * W; i += THREADS) t_mds[i] = mds[i];
-    for (int i = threadIdx.x; i < ROUNDS * 2 * W; i += THREADS)
-        t_ark[i] = ark[i];
-    __syncthreads();
-    const long long col = (long long)blockIdx.x * THREADS + threadIdx.x;
-    if (col >= n) return;
-    u64 s[W];
-#pragma unroll
-    for (int j = 0; j < W; j++) s[j] = in[j * n + col];
-#pragma unroll 1
-    for (int r = 0; r < ROUNDS; r++) {
-#pragma unroll
-        for (int j = 0; j < W; j++) s[j] = f63_mmul(f63_msqr(s[j]), s[j]);
-        mds_lanes(s, t_mds, t_ark + r * 2 * W);
-        inv_sbox(s);
-        mds_lanes(s, t_mds, t_ark + r * 2 * W + W);
-    }
-#pragma unroll
-    for (int j = 0; j < W; j++) out[j * n + col] = s[j];
+    if (live) out[lane * n + col] = s;
 }
 
 // in, out: [14, n] u64 on the device; mds: [14, 14] and ark: [8, 28]
-// Montgomery tables on the device. threads_per_state picks the layout:
-// GROUP (16) or 1.
+// Montgomery tables on the device.
 extern "C" int rescue_perm_launch(const void* in, void* out, long long n,
                                   const void* mds, const void* ark,
-                                  int threads_per_state, void* stream) {
+                                  void* stream) {
     if (n <= 0) return 0;
-    cudaStream_t st = (cudaStream_t)stream;
-    long long blocks =
-        (n * threads_per_state + THREADS - 1) / THREADS;
-    if (threads_per_state == GROUP)
-        rescue_perm_group<<<(unsigned)blocks, THREADS, 0, st>>>(
-            (const u64*)in, (u64*)out, n, (const u64*)mds, (const u64*)ark);
-    else if (threads_per_state == 1)
-        rescue_perm_thread<<<(unsigned)blocks, THREADS, 0, st>>>(
-            (const u64*)in, (u64*)out, n, (const u64*)mds, (const u64*)ark);
-    else
-        return (int)cudaErrorInvalidValue;
+    long long blocks = (n * GROUP + THREADS - 1) / THREADS;
+    rescue_perm_group<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (const u64*)in, (u64*)out, n, (const u64*)mds, (const u64*)ark);
     return (int)cudaGetLastError();
 }

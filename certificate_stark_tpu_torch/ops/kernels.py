@@ -46,15 +46,15 @@ INV_ALPHA_CHAIN = (
 ) + (("y", "y", 8, "x85"),) * 6 + (("y", "y", 6, "x21"), ("y", "y", 1, "x"))
 
 
-def walk_chain(x, square, mul, chain=INV_ALPHA_CHAIN):
-    """x^INV_ALPHA by `chain`, with the given square and multiply."""
+def walk_chain(x, square, mul):
+    """x^INV_ALPHA by INV_ALPHA_CHAIN, with the given square and multiply."""
     v = {"x": x}
-    for dst, src, k, w in chain:
+    for dst, src, k, w in INV_ALPHA_CHAIN:
         r = v[src]
         for _ in range(k):
             r = square(r)
         v[dst] = r if w is None else mul(r, v[w])
-    return v[chain[-1][0]]
+    return v[INV_ALPHA_CHAIN[-1][0]]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -62,13 +62,6 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = {"f63_mul": "f63_mul.cu", "rescue_perm": "rescue_perm.cu"}
-# Threads a state in the Rescue kernel's two layouts (csrc/rescue_perm.cu)
-RESCUE_LAYOUTS = {"group": 16, "thread": 1}
-
-
-def rescue_layout(n: int) -> int:
-    """Threads a state for a launch of n states."""
-    return RESCUE_LAYOUTS["group"]
 _HEADERS = ("f63.cuh",)
 
 _LIBS: dict = {}
@@ -184,8 +177,7 @@ def _lib(name: str):
             lib.f63_mul_launch.argtypes = [vp, vp, vp, ll, vp]
             lib.f63_mul_launch.restype = ctypes.c_int
         else:
-            lib.rescue_perm_launch.argtypes = [vp, vp, ll, vp, vp,
-                                               ctypes.c_int, vp]
+            lib.rescue_perm_launch.argtypes = [vp, vp, ll, vp, vp, vp]
             lib.rescue_perm_launch.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
@@ -230,18 +222,6 @@ def f63_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 f63_mul.launches = 0
 
 
-def rescue_launch(state: torch.Tensor, mds: torch.Tensor, ark: torch.Tensor,
-                  threads_per_state: int) -> torch.Tensor:
-    """One launch of the Rescue kernel in the given layout (RESCUE_LAYOUTS)
-    on checked CUDA tensors; not counted."""
-    out = torch.empty_like(state)
-    stream = torch.cuda.current_stream(state.device).cuda_stream
-    _raise_on(_lib("rescue_perm").rescue_perm_launch(
-        state.data_ptr(), out.data_ptr(), state.shape[1], mds.data_ptr(),
-        ark.data_ptr(), threads_per_state, stream), "rescue_permutation")
-    return out
-
-
 def rescue_permutation(state: torch.Tensor, mds: torch.Tensor,
                        ark: torch.Tensor) -> torch.Tensor:
     """Rescue permutation of [14, N] int64 states with Montgomery tables
@@ -257,7 +237,11 @@ def rescue_permutation(state: torch.Tensor, mds: torch.Tensor,
     _check(state, "rescue_permutation state")
     _check(mds, "rescue_permutation mds", state.device, (14, 14))
     _check(ark, "rescue_permutation ark", state.device, (8, 28))
-    out = rescue_launch(state, mds, ark, rescue_layout(state.shape[1]))
+    out = torch.empty_like(state)
+    stream = torch.cuda.current_stream(state.device).cuda_stream
+    _raise_on(_lib("rescue_perm").rescue_perm_launch(
+        state.data_ptr(), out.data_ptr(), state.shape[1], mds.data_ptr(),
+        ark.data_ptr(), stream), "rescue_permutation")
     rescue_permutation.launches += 1
     return out
 

@@ -53,13 +53,14 @@ RESCUE_SIZES = sorted({1, 3, 33, 1000} | {1 << k for k in range(17)})
 # Loop trip counts of each Rescue kernel's SASS, outermost loop first, and
 # the share of the innermost loop's iterations that run a block it can
 # skip; with threads per state, for the count of instructions per
-# permutation.
+# permutation. rescue_perm_kernel is the earlier one-state-a-thread kernel
+# with a square-and-multiply inverse s-box, for `--rescue` runs on older
+# checkouts.
 SASS_LOOPS = {
     "rescue_perm_kernel": dict(trips=[7, 61], taken=32 / 61, threads=1),
     "rescue_perm_group": dict(trips=[7, 6], taken=1.0, threads=16),
-    "rescue_perm_thread": dict(trips=[7, 6], taken=1.0, threads=1),
 }
-OUT = os.path.join(ROOT, "chiprun_out")
+OUT = os.path.join(ROOT, "build")           # git-ignored: the profile trace
 
 
 def log(*args):
@@ -166,25 +167,16 @@ def phase_rescue(dev, rand):
     from certificate_stark_tpu_torch.ops import kernels as K
     from certificate_stark_tpu_torch.ops import rescue as R
     mds, _, ark = R.tables(dev)
-    layouts = getattr(K, "RESCUE_LAYOUTS", {})
-    err, ms_by_n, by_layout = 0, {}, {name: {} for name in layouts}
+    err, ms_by_n = 0, {}
     for nstates in RESCUE_SIZES:
         st = rand(14, nstates)
         exp = K.rescue_permutation_plain(st, mds, ark)
         got = K.rescue_permutation(st, mds, ark)
         err = max(err, int((got - exp).abs().max()))
         check(err == 0, f"rescue_permutation differs at [14, {nstates}]")
-        for name, tps in layouts.items():
-            got = K.rescue_launch(st, mds, ark, tps)
-            err = max(err, int((got - exp).abs().max()))
-            check(err == 0, f"rescue layout {name} differs at [14, {nstates}]")
-            by_layout[name][nstates] = cuda_ms(
-                lambda: K.rescue_launch(st, mds, ark, tps), 20)
         ms_by_n[nstates] = cuda_ms(
             lambda: K.rescue_permutation(st, mds, ark), 20)
-        log(f"rescue_permutation [14, {nstates}]: {ms_by_n[nstates]:.4f} ms"
-            + "".join(f"; {name} {t[nstates]:.4f} ms"
-                      for name, t in by_layout.items()))
+        log(f"rescue_permutation [14, {nstates}]: {ms_by_n[nstates]:.4f} ms")
     nstates = 1 << 15
     st = rand(14, nstates)
     plain = cuda_ms(lambda: K.rescue_permutation_plain(st, mds, ark), 2)
@@ -196,8 +188,7 @@ def phase_rescue(dev, rand):
                 replaces="certificate_stark_tpu/ops/pallas_kernels.py:143",
                 max_abs_err=err, ms=ms_by_n[nstates], plain_ms=plain,
                 bound_ms=bnd, bound_by=by, library_ms=None,
-                shape=[14, nstates], ms_by_n=ms_by_n,
-                ms_by_layout=by_layout)
+                shape=[14, nstates], ms_by_n=ms_by_n)
 
 
 def _sass(path):
@@ -223,7 +214,8 @@ def _sass_executed(instrs, trips, taken):
     """Instructions one thread executes: each weighted by the trip counts
     of the loops (backward branches) around it, outermost first, and a
     range that a forward branch inside the innermost loop skips by
-    `taken`. None when the loops found are not the ones expected."""
+    `taken`; and of them the IMAD instructions (the multiply-add pipe).
+    None when the loops found are not the ones expected."""
     loops, skips = [], []
     for addr, ins in instrs:
         m = re.search(r"\bBRA\s+(?:\S+\s+)?0x([0-9a-f]+)", ins)
@@ -236,11 +228,11 @@ def _sass_executed(instrs, trips, taken):
             skips.append((addr, tgt))
     loops.sort()
     if len(loops) != len(trips):
-        return None, loops, skips
+        return None, None, loops, skips
     inner = loops[-1]
     skips = [(a, t) for a, t in skips if inner[0] <= a and t <= inner[1]]
-    total = 0.0
-    for addr, _ in instrs:
+    total = imad = 0.0
+    for addr, ins in instrs:
         w = 1.0
         for (lo, hi), n in zip(loops, trips):
             if lo <= addr <= hi:
@@ -248,7 +240,9 @@ def _sass_executed(instrs, trips, taken):
         if any(a < addr < t for a, t in skips):
             w *= taken
         total += w
-    return total, loops, skips
+        if re.sub(r"^@!?U?P\w+\s+", "", ins).startswith("IMAD"):
+            imad += w
+    return total, imad, loops, skips
 
 
 def phase_sass():
@@ -262,7 +256,7 @@ def phase_sass():
             for key, spec in SASS_LOOPS.items():
                 if key not in func:
                     continue
-                per_thread, loops, skips = _sass_executed(
+                per_thread, imad, loops, skips = _sass_executed(
                     instrs, spec["trips"], spec["taken"])
                 if per_thread is None:
                     bras = [i for _, i in instrs if "BRA" in i][:4]
@@ -274,15 +268,16 @@ def phase_sass():
                     out[func] = per_perm
                     line += (f"; {len(loops)} loops (trips {spec['trips']}), "
                              f"{len(skips)} skipped ranges: {per_thread:.0f} "
-                             f"a thread, {per_perm:.0f} a permutation")
+                             f"a thread, {per_perm:.0f} a permutation, "
+                             f"{100 * imad / per_thread:.1f}% IMAD")
             log(line)
     return out
 
 
 def phase_profile(dev):
-    """One warm chain-1024 proof under torch.profiler (CUDA activity):
-    device time by kernel name, the Rescue kernels' share, and the device's
-    busy share of the proof's wall time."""
+    """Ten warm chain-1024 proofs timed on the host clock, then one under
+    torch.profiler (CUDA activity): device time by kernel name, the Rescue
+    kernels' share, and the device's busy share of the proof's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from certificate_stark_tpu_torch.engine.options import ProofOptions
@@ -295,7 +290,13 @@ def phase_profile(dev):
                                device=dev)
     prover = Prover(ex.air(), device=dev)
     prover.prove(ex.trace)                                  # warm-up
-    torch.cuda.synchronize()
+    walls = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prover.prove(ex.trace)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         prover.prove(ex.trace)
@@ -318,6 +319,9 @@ def phase_profile(dev):
     device_ms = sum(t for t, _ in by_name.values())
     rescue = [(n, t, c) for n, (t, c) in by_name.items() if "rescue_perm" in n]
     rescue_ms = sum(t for _, t, _ in rescue)
+    log(f"chain 1024 warm proof (trace built beforehand), {len(walls)} "
+        f"runs: median {sorted(walls)[len(walls) // 2]:.1f} ms, min "
+        f"{min(walls):.1f} ms, max {max(walls):.1f} ms")
     log(f"profile, chain 1024 warm proof (trace built beforehand): wall "
         f"{wall_ms:.1f} ms, device busy {device_ms:.1f} ms "
         f"({100 * device_ms / wall_ms:.1f}%), Rescue kernels "
@@ -325,7 +329,8 @@ def phase_profile(dev):
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         log(f"  {t:9.3f} ms {c:5d}x {name[:90]}")
     log(f"  Rescue launches by grid: {rescue_grids}")
-    return dict(wall_ms=wall_ms, device_ms=device_ms, rescue_ms=rescue_ms)
+    return dict(walls_ms=walls, profiled_wall_ms=wall_ms,
+                device_ms=device_ms, rescue_ms=rescue_ms)
 
 
 def _prove(chain, opts, dev, mark=None):
