@@ -129,3 +129,22 @@ __device__ __forceinline__ u64 f63_msqr(u64 a) {
     f63_sqr_wide(a, t0, t1, t2, t3);
     return f63_redc(t0, t1, t2, t3);
 }
+
+// x^INV_ALPHA, INV_ALPHA = 0b1010111 (01)x27 1: ops/kernels.py
+// INV_ALPHA_CHAIN written out, 61 squarings and 12 multiplies.
+__device__ __forceinline__ u64 f63_inv_sbox(u64 x) {
+    u64 x2 = f63_msqr(x);
+    u64 x5 = f63_mmul(f63_msqr(x2), x);
+    u64 x21 = f63_mmul(f63_msqr(f63_msqr(x5)), x);
+    u64 x85 = f63_mmul(f63_msqr(f63_msqr(x21)), x);
+    u64 y = f63_mmul(x85, x2);  // x^87
+#pragma unroll 1
+    for (int i = 0; i < 6; i++) {  // y = y^(2^8) * x^85
+#pragma unroll
+        for (int k = 0; k < 8; k++) y = f63_msqr(y);
+        y = f63_mmul(y, x85);
+    }
+#pragma unroll
+    for (int k = 0; k < 6; k++) y = f63_msqr(y);
+    return f63_mmul(f63_msqr(f63_mmul(y, x21)), x);
+}

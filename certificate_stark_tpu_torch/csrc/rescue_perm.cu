@@ -33,25 +33,6 @@
 #define GROUP 16    // threads a state: lanes 0-13 active, 14-15 idle
 #define THREADS 128
 
-// x^INV_ALPHA, INV_ALPHA = 0b1010111 (01)x27 1: ops/kernels.py
-// INV_ALPHA_CHAIN written out, 61 squarings and 12 multiplies.
-__device__ __forceinline__ u64 inv_sbox(u64 x) {
-    u64 x2 = f63_msqr(x);
-    u64 x5 = f63_mmul(f63_msqr(x2), x);
-    u64 x21 = f63_mmul(f63_msqr(f63_msqr(x5)), x);
-    u64 x85 = f63_mmul(f63_msqr(f63_msqr(x21)), x);
-    u64 y = f63_mmul(x85, x2);  // x^87
-#pragma unroll 1
-    for (int i = 0; i < 6; i++) {  // y = y^(2^8) * x^85
-#pragma unroll
-        for (int k = 0; k < 8; k++) y = f63_msqr(y);
-        y = f63_mmul(y, x85);
-    }
-#pragma unroll
-    for (int k = 0; k < 6; k++) y = f63_msqr(y);
-    return f63_mmul(f63_msqr(f63_mmul(y, x21)), x);
-}
-
 // Lane `row` of the MDS product: sum_j mds[row][j] * s_j, with s_j the
 // value of lane j of this thread's group, reduced once.
 __device__ __forceinline__ u64 mds_row(const u64 m[W], u64 s) {
@@ -86,7 +67,7 @@ rescue_perm_group(const u64* __restrict__ in, u64* __restrict__ out,
     for (int r = 0; r < ROUNDS; r++) {
         s = f63_mmul(f63_msqr(s), s);
         s = f63_add(mds_row(m, s), __ldg(ark + r * 2 * W + row));
-        s = inv_sbox(s);
+        s = f63_inv_sbox(s);
         s = f63_add(mds_row(m, s), __ldg(ark + r * 2 * W + W + row));
     }
     if (live) out[lane * n + col] = s;

@@ -13,8 +13,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops import field as F
-from ..utils import poly_host as PH
+from ..ops import field as F, ntt as NTT
 
 
 @dataclass(frozen=True)
@@ -120,7 +119,9 @@ class Air:
         """Periodic columns extended to the LDE domain, compact form:
         [n_cols, L] Montgomery with L = blowup * lcm(cycle lengths). Column
         poly p(x^(n/t)) has period blowup*t on the coset, so one block
-        carries the whole LDE; consumers tile it. Host ints, small t."""
+        carries the whole LDE; consumers tile it. The columns of one cycle
+        length go through the device NTT together (canonical values: the
+        same bits as the JAX package's host NTTs)."""
         cols = self.periodic_columns()
         if cols is None:
             return None
@@ -128,15 +129,15 @@ class Air:
         lcm = 1
         for col in cols:
             lcm = lcm * len(col) // math.gcd(lcm, len(col))
-        rows = []
-        for col in cols:
-            t = len(col)
-            o = pow(offset, n // t, F.P)
-            coeffs = PH.intt([int(v) % F.P for v in col])
-            scaled = [c * pow(o, i, F.P) % F.P for i, c in enumerate(coeffs)]
-            ext = PH.ntt(scaled + [0] * ((blowup - 1) * t))
-            rows.append(ext * (lcm // t))
-        return F.from_ints(rows, device)
+        rows = [None] * len(cols)
+        for t in sorted({len(col) for col in cols}):
+            idx = [i for i, col in enumerate(cols) if len(col) == t]
+            vals = F.from_ints([[int(v) % F.P for v in cols[i]] for i in idx],
+                               device)
+            ext = NTT.lde(vals, blowup, pow(offset, n // t, F.P))
+            for i, row in zip(idx, ext.repeat(1, lcm // t)):
+                rows[i] = row
+        return torch.stack(rows)
 
 
 def tile_periodic(block: torch.Tensor, length: int) -> torch.Tensor:

@@ -1,8 +1,11 @@
-"""Fiat-Shamir public coin (host side, Rescue mode).
+"""Fiat-Shamir public coin (host side).
 
 Counterpart of certificate_stark_tpu/engine/coin.py `RandomCoin`: the state
-is a truncated Rescue digest, reseeded with each commitment; a draw hashes
-(state, counter) and reads out the first element. The optional journal
+is a digest of the hasher, reseeded with each commitment. Rescue mode: a
+draw hashes (state, counter) and reads out the first element. Byte mode
+(BLAKE3): a draw merges the state with the counter repeated digest_len
+times and reads 63-bit values from word pairs, rejecting those >= p; the
+proof-of-work bound is on the first 32-bit word. The optional journal
 records every step, for the golden-transcript comparisons.
 """
 from __future__ import annotations
@@ -12,7 +15,6 @@ from ..ops.field import P
 
 class RandomCoin:
     def __init__(self, hasher, seed_elements, journal=None):
-        assert hasher.name == "rescue"
         self.h = hasher
         self.state = hasher.host_digest([int(x) % P for x in seed_elements])
         self.counter = 0
@@ -26,10 +28,27 @@ class RandomCoin:
         if self.journal is not None:
             self.journal.append(("reseed", [int(x) for x in self.state]))
 
+    def _block(self, value: int) -> tuple:
+        """The hash of the state with one appended value (the counter or a
+        PoW nonce)."""
+        if self.h.name == "rescue":
+            return self.h.host_digest(list(self.state) + [value])
+        return self.h.host_merge(self.state, (value,) * self.h.digest_len)
+
+    def _draw_felt_raw(self) -> int:
+        while True:
+            self.counter += 1
+            blk = self._block(self.counter)
+            if self.h.name == "rescue":
+                return int(blk[0])            # already uniform in F_p
+            for i in range(0, 8, 2):
+                v = ((int(blk[i]) << 32) | int(blk[i + 1])) & ((1 << 63) - 1)
+                if v < P:
+                    return v
+
     def draw_felt(self) -> int:
         """Uniform element of F_p."""
-        self.counter += 1
-        v = int(self.h.host_digest(list(self.state) + [self.counter])[0])
+        v = self._draw_felt_raw()
         if self.journal is not None:
             self.journal.append(("felt", v))
         return v
@@ -52,8 +71,9 @@ class RandomCoin:
     def check_pow(self, nonce: int, grinding_bits: int) -> bool:
         if grinding_bits == 0:
             return True
-        lead = int(self.h.host_digest(list(self.state) + [int(nonce)])[0])
-        return lead < 1 << (63 - grinding_bits)
+        lead = int(self._block(int(nonce))[0])
+        width = 63 if self.h.name == "rescue" else 32
+        return lead < 1 << (width - grinding_bits)
 
     def grind(self, grinding_bits: int, max_iter: int = 1 << 26) -> int:
         """Smallest PoW nonce, by the host loop (grinding of 10 bits or

@@ -3,7 +3,10 @@
 Counterpart of the base-field `BaseFieldOps` of
 certificate_stark_tpu/engine/fieldops.py. Elements are int64 tensors
 [*S] (Montgomery); a frame is [w, B], and `col`/`cols` select along the
-leading column axis.
+leading column axis. Every JAX axis index is one lower here (no limb axis).
+Constants are made on the device of a reference tensor `like`: a 0-dim
+tensor broadcasts against any shape, where the JAX facade's `const` takes
+the rank it must broadcast against.
 """
 from __future__ import annotations
 
@@ -22,6 +25,22 @@ class BaseFieldOps:
     neg = staticmethod(F.neg)
     double = staticmethod(F.double)
     inv = staticmethod(F.inv)
+    zeros_like = staticmethod(torch.zeros_like)
+
+    @staticmethod
+    def const(x: int, like):
+        """0-dim Montgomery constant on like's device."""
+        return F.const(x, like.device)
+
+    @staticmethod
+    def embed(ints, like):
+        """Standard-form ints -> constant column [k, 1] on like's device
+        (broadcasts over the batch axis)."""
+        return F.from_ints(list(ints), like.device)[:, None]
+
+    @staticmethod
+    def stack(elems, dim=0):
+        return torch.stack(elems, dim=dim)
 
     @staticmethod
     def col(arr, i):

@@ -1,28 +1,20 @@
 """Merkle commitment trees built on the device, opened and checked on the host.
 
 Counterpart of certificate_stark_tpu/engine/merkle.py and `tree_levels` of
-certificate_stark_tpu/engine/kernels.py. Leaves are digest columns [4, n]
-from a hasher; every level is one batched merge.
+certificate_stark_tpu/engine/kernels.py. Leaves are digest columns
+[digest_len, n] from a hasher; every level is one batched merge.
 """
 from __future__ import annotations
 
 import torch
 
-from ..ops import field as F
-
 
 def tree_levels(hasher, leaves):
-    """All Merkle levels, leaves first, root ([4, 1]) last."""
+    """All Merkle levels, leaves first, root ([digest_len, 1]) last."""
     levels = [leaves]
     while levels[-1].shape[-1] > 1:
         levels.append(hasher.merge_pairs(levels[-1]))
     return levels
-
-
-def _digests(cols) -> list:
-    """[4, m] Montgomery digests -> m tuples of standard-form ints."""
-    std = F.from_mont(cols).cpu().T.tolist()
-    return [tuple(d) for d in std]
 
 
 class MerkleTree:
@@ -43,7 +35,7 @@ class MerkleTree:
 
     def root(self) -> tuple:
         if self._root is None:
-            self._root = _digests(self.levels[-1][:, :1])[0]
+            self._root = self.hasher.to_host(self.levels[-1][:, :1])[0]
         return self._root
 
 
@@ -64,7 +56,8 @@ def prove_batch_multi(trees, indices_list):
         for lvl in tree.levels[:-1]:
             sibs.append(lvl.index_select(1, cur ^ 1))
             cur = cur >> 1
-        flat = _digests(torch.cat(sibs, dim=1))   # level-major, then index
+        # level-major, then index
+        flat = tree.hasher.to_host(torch.cat(sibs, dim=1))
         q = len(uniq)
         out.append({i: [flat[li * q + qi] for li in range(tree.depth)]
                     for qi, i in enumerate(uniq)})

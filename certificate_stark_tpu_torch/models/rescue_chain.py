@@ -16,6 +16,7 @@ from ..engine.prover import Prover
 from ..ops import field as F, rescue as R
 from ..params import data as D
 from ..utils import device as DV, rescue_ref as RR
+from .constraints import rescue_enforce_round
 
 TRACE_WIDTH = 14
 CYCLE = R.CYCLE_LENGTH  # 8
@@ -76,10 +77,7 @@ class RescueChainAir(Air):
         ark0 = fx.cols(periodic, 1, 15)            # [14, B]
         ark1 = fx.cols(periodic, 15, 29)
 
-        # round: sbox+mds+ark on current == inv(ark+mds) sbox side of next
-        step1 = fx.add(fx.rescue_mds(fx.sbox3(current)), ark0)
-        step2 = fx.sbox3(fx.rescue_inv_mds(fx.sub(nxt, ark1)))
-        round_c = fx.sub(step2, step1)             # [14, B]
+        round_c = rescue_enforce_round(fx, current, nxt, ark0, ark1)
 
         copy_c = fx.cat1([
             fx.sub(fx.cols(nxt, 0, 7), fx.cols(current, 0, 7)),

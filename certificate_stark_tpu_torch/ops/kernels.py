@@ -1,12 +1,20 @@
 """The port's hand-written Hopper kernels, their plain PyTorch versions and
 the build loader.
 
-Each kernel replaces one Pallas kernel of the JAX package
+Two kernels replace the Pallas kernels of the JAX package
 (certificate_stark_tpu/ops/pallas_kernels.py):
 
   f63_mul             <- pallas_mul (:176-191), csrc/f63_mul.cu
   rescue_permutation  <- pallas_rescue_permutation (:142-160),
                          csrc/rescue_perm.cu
+
+and three replace XLA code of the JAX package's composed-AIR path:
+
+  blake3_leaves, blake3_merge  <- engine/hasher.py Blake3Hasher
+                                  hash_columns / merge_pairs, csrc/blake3.cu
+  transaction_trace            <- models/trace_device.py build_trace_device,
+                                  csrc/tx_trace.cu (its plain version is
+                                  models/trace_device.py build_trace_plain)
 
 The CUDA sources are compiled at first use with nvcc for sm_90a, one shared
 library with a plain C interface per source (all compiles started together),
@@ -29,6 +37,8 @@ import shutil
 import subprocess
 
 import torch
+
+from . import blake3 as B3
 
 P = 4719772409484279809                      # 2^62 + 2^56 + 2^55 + 1
 NPRIME = (-pow(P, -1, 1 << 64)) % (1 << 64)  # 0x417fffffffffffff
@@ -61,7 +71,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = {"f63_mul": "f63_mul.cu", "rescue_perm": "rescue_perm.cu"}
+SOURCES = {"f63_mul": "f63_mul.cu", "rescue_perm": "rescue_perm.cu",
+           "blake3": "blake3.cu", "tx_trace": "tx_trace.cu"}
 _HEADERS = ("f63.cuh",)
 
 _LIBS: dict = {}
@@ -116,6 +127,20 @@ def rescue_permutation_plain(state: torch.Tensor, mds: torch.Tensor,
     return s
 
 
+def blake3_leaves_plain(cols: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch leaf hashes: [k, B] Montgomery -> [8, B] words of the
+    single-chunk BLAKE3 of each row's 8k bytes (8-byte LE standard form)."""
+    std = mul_plain(cols, torch.ones((), dtype=torch.int64,
+                                     device=cols.device))
+    return B3.blake3_words(B3.felems_to_words_le(std))
+
+
+def blake3_merge_plain(level: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch Merkle level: [8, 2m] words -> [8, m], pair j hashed
+    as the single-chunk BLAKE3 of the 64 bytes left || right."""
+    return B3.blake3_words(torch.cat([level[:, 0::2], level[:, 1::2]]))
+
+
 # ---------------------------------------------------------------------------
 # build and load
 # ---------------------------------------------------------------------------
@@ -168,17 +193,25 @@ def build() -> dict:
     return paths
 
 
+_vp, _ll, _int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# the C entry points of each library and their argument types
+_ENTRY_POINTS = {
+    "f63_mul": {"f63_mul_launch": [_vp, _vp, _vp, _ll, _vp]},
+    "rescue_perm": {"rescue_perm_launch": [_vp, _vp, _ll, _vp, _vp, _vp]},
+    "blake3": {"blake3_leaves_launch": [_vp, _vp, _int, _ll, _vp],
+               "blake3_merge_launch": [_vp, _vp, _ll, _vp]},
+    "tx_trace": {"transaction_trace_launch":
+                 [_vp] * 14 + [_int, _ll, _vp, _vp]},
+}
+
+
 def _lib(name: str):
     lib = _LIBS.get(name)
     if lib is None:
         lib = ctypes.CDLL(build()[name])
-        vp, ll = ctypes.c_void_p, ctypes.c_longlong
-        if name == "f63_mul":
-            lib.f63_mul_launch.argtypes = [vp, vp, vp, ll, vp]
-            lib.f63_mul_launch.restype = ctypes.c_int
-        else:
-            lib.rescue_perm_launch.argtypes = [vp, vp, ll, vp, vp, vp]
-            lib.rescue_perm_launch.restype = ctypes.c_int
+        for fn, argtypes in _ENTRY_POINTS[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 
@@ -248,7 +281,95 @@ def rescue_permutation(state: torch.Tensor, mds: torch.Tensor,
 
 rescue_permutation.launches = 0
 
-WRAPPERS = (f63_mul, rescue_permutation)
+
+def blake3_leaves(cols: torch.Tensor) -> torch.Tensor:
+    """BLAKE3 leaf hashes of the rows of a [k, B] Montgomery int64 tensor
+    (k <= 128: one chunk) -> [8, B] int64 digest words."""
+    if cols.device.type == "cpu":
+        return blake3_leaves_plain(cols)
+    if cols.device.type != "cuda":
+        raise ValueError(f"blake3_leaves: unsupported device {cols.device}")
+    if cols.dim() != 2 or not 1 <= cols.shape[0] <= 128:
+        raise ValueError(f"blake3_leaves: shape {tuple(cols.shape)}, "
+                         "expected (k, B) with 1 <= k <= 128")
+    _check(cols, "blake3_leaves cols")
+    out = torch.empty((8, cols.shape[1]), dtype=torch.int64,
+                      device=cols.device)
+    stream = torch.cuda.current_stream(cols.device).cuda_stream
+    _raise_on(_lib("blake3").blake3_leaves_launch(
+        cols.data_ptr(), out.data_ptr(), cols.shape[0], cols.shape[1],
+        stream), "blake3_leaves")
+    blake3_leaves.launches += 1
+    return out
+
+
+blake3_leaves.launches = 0
+
+
+def blake3_merge(level: torch.Tensor) -> torch.Tensor:
+    """One Merkle level: [8, 2m] int64 digest words -> [8, m]."""
+    if level.device.type == "cpu":
+        return blake3_merge_plain(level)
+    if level.device.type != "cuda":
+        raise ValueError(f"blake3_merge: unsupported device {level.device}")
+    if level.dim() != 2 or level.shape[0] != 8 or level.shape[1] % 2:
+        raise ValueError(f"blake3_merge: shape {tuple(level.shape)}, "
+                         "expected (8, 2m)")
+    _check(level, "blake3_merge level")
+    m = level.shape[1] // 2
+    out = torch.empty((8, m), dtype=torch.int64, device=level.device)
+    stream = torch.cuda.current_stream(level.device).cuda_stream
+    _raise_on(_lib("blake3").blake3_merge_launch(
+        level.data_ptr(), out.data_ptr(), m, stream), "blake3_merge")
+    blake3_merge.launches += 1
+    return out
+
+
+blake3_merge.launches = 0
+
+# transaction_trace inputs, in the order of the C entry point: name ->
+# shape of one transaction's slice ("d" = the tree depth)
+TRACE_INPUTS = (("init", (94,)), ("sibs", (2, "d", 7)), ("path_bits", (2, "d")),
+                ("pkey", (12,)), ("rx", (6,)), ("sbits", (256,)),
+                ("hbits", (256,)), ("msg", (4, 7)), ("dbits", (64,)),
+                ("gbits", (64,)))
+
+
+def transaction_trace(inputs: dict, consts: dict, depth: int) -> torch.Tensor:
+    """The composed AIR's Montgomery trace [94, T*1024] from the packed
+    witness (models/trace_device.py `pack_witness`): `inputs` holds the
+    per-transaction tensors of TRACE_INPUTS, `consts` the Montgomery
+    tables gen12 [12], b3 [6], mds [14, 14], ark [8, 28]."""
+    init = inputs["init"]
+    if init.device.type == "cpu":
+        from ..models.trace_device import build_trace_plain
+        return build_trace_plain(inputs, consts, depth)
+    if init.device.type != "cuda":
+        raise ValueError(f"transaction_trace: unsupported device "
+                         f"{init.device}")
+    T = init.shape[0]
+    if not 1 <= depth <= 63:
+        raise ValueError(f"transaction_trace: depth {depth} not in 1..63")
+    for name, shape in TRACE_INPUTS:
+        shape = (T,) + tuple(depth if s == "d" else s for s in shape)
+        _check(inputs[name], f"transaction_trace {name}", init.device, shape)
+    for name, shape in (("gen12", (12,)), ("b3", (6,)), ("mds", (14, 14)),
+                        ("ark", (8, 28))):
+        _check(consts[name], f"transaction_trace {name}", init.device, shape)
+    out = torch.empty((94, T * 1024), dtype=torch.int64, device=init.device)
+    stream = torch.cuda.current_stream(init.device).cuda_stream
+    ptrs = [inputs[name].data_ptr() for name, _ in TRACE_INPUTS] + \
+        [consts[name].data_ptr() for name in ("gen12", "b3", "mds", "ark")]
+    _raise_on(_lib("tx_trace").transaction_trace_launch(
+        *ptrs, depth, T, out.data_ptr(), stream), "transaction_trace")
+    transaction_trace.launches += 1
+    return out
+
+
+transaction_trace.launches = 0
+
+WRAPPERS = (f63_mul, rescue_permutation, blake3_leaves, blake3_merge,
+            transaction_trace)
 
 
 def reset_launches():

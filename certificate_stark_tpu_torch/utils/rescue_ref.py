@@ -1,7 +1,10 @@
 """Python-int Rescue63 (a copy of certificate_stark_tpu/utils/rescue_ref.py,
-after the reference's src/utils/rescue.rs). The Fiat-Shamir coin and the
-rescue-chain trace builder use it on the host."""
+after the reference's src/utils/rescue.rs). The Fiat-Shamir coin, the
+rescue-chain trace builder and the witness (account tree, Schnorr message
+hash) use it on the host."""
 from __future__ import annotations
+
+from operator import mul
 
 from ..params import data as D
 
@@ -12,18 +15,20 @@ DIGEST_SIZE = 7
 NUM_ROUNDS = 7
 
 
-def _mds_apply(state, mds):
-    return [sum(mds[i * 14 + j] * state[j] for j in range(14)) % P
-            for i in range(14)]
+_MDS_ROWS = [D.RESCUE_MDS[i * 14:(i + 1) * 14] for i in range(14)]
+
+
+def _mds_apply(state):
+    return [sum(map(mul, row, state)) % P for row in _MDS_ROWS]
 
 
 def apply_round(state, step):
     ark = D.RESCUE_ARK[step % 8]
     state = [pow(x, 3, P) for x in state]
-    state = _mds_apply(state, D.RESCUE_MDS)
+    state = _mds_apply(state)
     state = [(x + ark[i]) % P for i, x in enumerate(state)]
     state = [pow(x, D.INV_ALPHA, P) for x in state]
-    state = _mds_apply(state, D.RESCUE_MDS)
+    state = _mds_apply(state)
     state = [(x + ark[STATE_WIDTH + i]) % P for i, x in enumerate(state)]
     return state
 
@@ -47,6 +52,12 @@ def digest(elements):
     if i > 0:
         state = permutation(state)
     return state[:DIGEST_SIZE]
+
+
+def merge(d0, d1):
+    """2-to-1 merge of full 7-element digests: perm(d0 || d1)[0..7] (the
+    account tree and the Schnorr message hash)."""
+    return permutation(list(d0) + list(d1))[:DIGEST_SIZE]
 
 
 def merge4(d0, d1):

@@ -3,13 +3,22 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from certificate_stark_tpu_torch/csrc, holds
-each against its plain PyTorch version on the card, reproduces the committed
-goldens (rescue chain 16 from tests/vectors/transcripts.json, rescue chain
-1024 from tests/vectors/torch_goldens.json), times the chain-1024 proof by
-phase, and proves chain 8192 once with the kernels and once with the plain
-versions, which must give the same bytes. Any mismatch raises. Prints a
-`kernels` JSON line, the card's name and power limit, and as the last line
+Builds the port's CUDA kernels from certificate_stark_tpu_torch/csrc and
+holds each against its plain PyTorch version on the card (f63_mul, the
+Rescue permutation at every batch size a chain-1024 proof launches, the
+BLAKE3 leaf and merge kernels at every shape a 128-transaction proof
+launches, the transaction trace at 128 transactions, depth 15). Two main
+paths run with their launch counts set to 0 just before and read just
+after: the rescue chain of length 1024 (Rescue commitments) and the
+composed state-transition AIR at 128 transactions, depth 15, with bench.py's
+options (BLAKE3 commitments); each is timed by phase after a warm-up and
+profiled with torch.profiler. The committed goldens are reproduced (rescue
+chain 16 from tests/vectors/transcripts.json; rescue chain 1024 and the
+2-transaction Rescue and BLAKE3 and 16-transaction BLAKE3 transaction proofs
+from tests/vectors/torch_goldens.json), and chain 8192 and the
+128-transaction proof are proven once more with the plain versions, which
+must give the same bytes. Any mismatch raises. Prints a `kernels` JSON
+line, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when there is
 no CUDA device or no port beside it.
 """
@@ -47,6 +56,31 @@ INV_ALPHA_SQR, INV_ALPHA_MUL = 61, 12
 MULS_PER_PERM = 7 * 14 * (MULS_PER_MSQR + MULS_PER_MMUL + 2 * MULS_PER_MDS_ROW
                           + INV_ALPHA_SQR * MULS_PER_MSQR
                           + INV_ALPHA_MUL * MULS_PER_MMUL)
+# BLAKE3: 32-bit integer instructions of one compression (7 rounds x 8 G
+# mixes x (2 three-input adds, 2 adds, 4 xors, 4 funnel-shift rotates),
+# and the 8 output xors), and of one Montgomery -> standard REDC of a leaf
+# element. Integer add, logic and shift issue at the multiply-add rate
+# (64 a clock per SM), so bound_ms takes them with the multiplies.
+BLAKE3_OPS = 7 * 8 * 12 + 8
+REDC_OPS = 10
+# Fp6 arithmetic of the trace kernel: an fp6 multiply is 6 fp2 multiplies
+# of 3 Montgomery multiplies; the multiply by the curve constant b3 takes
+# 6, 9 or 18 Montgomery multiplies (base-subfield, fp2 or full fp6 b3).
+MULS_PER_F6MUL = 18 * MULS_PER_MMUL
+MULS_PER_ROUND = MULS_PER_PERM // 7
+F6_INV_EXP = 4719772409484279809 ** 6 - 2     # csrc/tx_trace.cu f6inv
+BENCH_OPTS = dict(num_queries=42, blowup=8, grinding_bits=0, hash_fn="blake3",
+                  extension_degree=1, fri_folding=4, fri_max_remainder=256)
+TX_COUNT, TX_DEPTH = 128, 15
+# BLAKE3 kernel checks: leaf shapes [k, B] (the main path's trace rows,
+# composition rows and first FRI layer, then ragged ones; the first is the
+# row of the kernels line) and merge level sizes (pairs; every size a
+# 128-transaction proof launches)
+LEAF_SHAPES = ((94, 1 << 20), (8, 1 << 20), (4, 1 << 18), (94, 1000),
+               (7, 333), (1, 1), (128, 3))
+MERGE_PAIRS = sorted({1 << e for e in range(20)} | {3, 1000})
+TX_GOLDENS = ("transaction_2tx_d3_rescue", "transaction_2tx_d3_blake3",
+              "transaction_16tx_d15_blake3")
 # Batch sizes at which the Rescue kernel is checked and timed: every size a
 # chain-1024 proof launches (2^0 .. 2^15) and ragged ones
 RESCUE_SIZES = sorted({1, 3, 33, 1000} | {1 << k for k in range(17)})
@@ -130,9 +164,10 @@ def phase_kernels(dev):
     P = F.P
     rand = _randoms(dev)
     rows = []
-    # f63_mul: 2^24 random values plus the edge values, then the main
-    # path's largest product (the MDS layer of the chain-1024 constraint
-    # evaluation, [14, 14, 2^15])
+    # f63_mul: 2^24 random values plus the edge values, then the largest
+    # product of each main path (the MDS layer of the constraint
+    # evaluation: [14, 14, 2^15] for chain 1024, [14, 14, 2^20] for 128
+    # transactions, the row of the kernels line)
     edge = torch.tensor([0, 1, P - 1, P - 2, 1 << 32, (1 << 63) % P],
                         dtype=torch.int64, device=dev)
     a = torch.cat([rand(1 << 24), edge.repeat_interleave(6)])
@@ -140,21 +175,25 @@ def phase_kernels(dev):
     got, exp = K.f63_mul(a, b), K.mul_plain(a, b)
     err = int((got - exp).abs().max())
     check(err == 0, "f63_mul differs from its plain version at 2^24")
-    n = 14 * 14 * (1 << 15)
-    a, b = rand(n), rand(n)
-    got, exp = K.f63_mul(a, b), K.mul_plain(a, b)
-    err = max(err, int((got - exp).abs().max()))
-    check(err == 0, "f63_mul differs from its plain version at 14x14x2^15")
-    ms = cuda_ms(lambda: K.f63_mul(a, b), 50)
-    plain = cuda_ms(lambda: K.mul_plain(a, b), 5)
-    bnd, by = bound_ms(24 * n, n * MULS_PER_MMUL)
+    ms_by_n = {}
+    for n in (14 * 14 * (1 << 15), 14 * 14 * (1 << 20)):
+        a, b = rand(n), rand(n)
+        got, exp = K.f63_mul(a, b), K.mul_plain(a, b)
+        err = max(err, int((got - exp).abs().max()))
+        check(err == 0, f"f63_mul differs from its plain version at [{n}]")
+        del got, exp
+        ms_by_n[n] = cuda_ms(lambda: K.f63_mul(a, b), 20)
+        plain = cuda_ms(lambda: K.mul_plain(a, b), 2)
+        bnd, by = bound_ms(24 * n, n * MULS_PER_MMUL)
+        log(f"f63_mul [{n}]: {ms_by_n[n]:.4f} ms, plain {plain:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by})")
     rows.append(dict(name="f63_mul", route="cuda",
                      source="certificate_stark_tpu_torch/csrc/f63_mul.cu",
                      replaces="certificate_stark_tpu/ops/pallas_kernels.py:177",
-                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                     bound_by=by, library_ms=None, shape=[n]))
-    log(f"f63_mul [{n}]: {ms:.4f} ms, plain {plain:.4f} ms, bound {bnd:.4f} "
-        f"ms ({by})")
+                     max_abs_err=err, ms=ms_by_n[n], plain_ms=plain,
+                     bound_ms=bnd, bound_by=by, library_ms=None, shape=[n],
+                     ms_by_n=ms_by_n))
+    del a, b
 
     rows.append(phase_rescue(dev, rand))
     return rows
@@ -403,8 +442,9 @@ def phase_full(dev):
         log(f"  {label:32s} {ms:10.1f} ms")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f}"
         f" MiB; kernel launches {launches}")
-    for name, count in launches.items():
-        check(count > 0, f"{name} was not launched on the main path")
+    for name in ("f63_mul", "rescue_permutation"):
+        check(launches[name] > 0, f"{name} was not launched on the chain "
+              "main path")
     _golden_check("rescue_chain1024_rescue", golden, prover, proof)
     return launches
 
@@ -440,6 +480,277 @@ def phase_scale(dev):
         f"sha256 {hashlib.sha256(out['kernels']).hexdigest()[:16]}...")
 
 
+def phase_blake3(dev):
+    """blake3_leaves and blake3_merge against their plain versions, bit for
+    bit: the leaves at the main path's shapes (the trace rows [94, 2^20],
+    the composition rows [8, 2^20], the first FRI layer [4, 2^18]) and at
+    ragged ones, the merges at every level size a 128-transaction proof
+    launches (2^0 .. 2^19 pairs). The rows are the largest of each."""
+    from certificate_stark_tpu_torch.ops import kernels as K
+    from certificate_stark_tpu_torch.ops import field as F
+    g = torch.Generator(device=dev).manual_seed(11)
+    err, ms_leaves = 0, {}
+    for k, b in LEAF_SHAPES:
+        x = torch.randint(0, F.P, (k, b), generator=g, device=dev,
+                          dtype=torch.int64)
+        got, exp = K.blake3_leaves(x), K.blake3_leaves_plain(x)
+        err = max(err, int((got - exp).abs().max()))
+        check(err == 0, f"blake3_leaves differs at [{k}, {b}]")
+        ms_leaves[f"{k}x{b}"] = cuda_ms(lambda: K.blake3_leaves(x), 10)
+        log(f"blake3_leaves [{k}, {b}]: {ms_leaves[f'{k}x{b}']:.4f} ms")
+    k, b = LEAF_SHAPES[0]
+    x = torch.randint(0, F.P, (k, b), generator=g, device=dev,
+                      dtype=torch.int64)
+    plain = cuda_ms(lambda: K.blake3_leaves_plain(x), 2)
+    nblocks = (8 * k + 63) // 64
+    bnd, by = bound_ms(8 * k * b + 64 * b,
+                            b * (nblocks * BLAKE3_OPS + k * REDC_OPS))
+    log(f"blake3_leaves [{k}, {b}]: plain {plain:.4f} ms, bound {bnd:.4f} ms "
+        f"({by})")
+    leaves = dict(name="blake3_leaves", route="cuda",
+                  source="certificate_stark_tpu_torch/csrc/blake3.cu",
+                  replaces="certificate_stark_tpu/engine/hasher.py:115",
+                  max_abs_err=err, ms=ms_leaves[f"{k}x{b}"], plain_ms=plain,
+                  bound_ms=bnd, bound_by=by, library_ms=None, shape=[k, b],
+                  ms_by_shape=ms_leaves)
+    err, ms_merge = 0, {}
+    for m in MERGE_PAIRS:
+        lvl = torch.randint(0, 1 << 32, (8, 2 * m), generator=g, device=dev,
+                            dtype=torch.int64)
+        got, exp = K.blake3_merge(lvl), K.blake3_merge_plain(lvl)
+        err = max(err, int((got - exp).abs().max()))
+        check(err == 0, f"blake3_merge differs at {m} pairs")
+        ms_merge[m] = cuda_ms(lambda: K.blake3_merge(lvl), 10)
+    log("blake3_merge ms by pairs: " + ", ".join(
+        f"{m}: {t:.4f}" for m, t in ms_merge.items()))
+    m = MERGE_PAIRS[-1]
+    lvl = torch.randint(0, 1 << 32, (8, 2 * m), generator=g, device=dev,
+                        dtype=torch.int64)
+    plain = cuda_ms(lambda: K.blake3_merge_plain(lvl), 2)
+    bnd, by = bound_ms(16 * m * 8 + 8 * m * 8, m * BLAKE3_OPS)
+    log(f"blake3_merge [8, {2 * m}]: plain {plain:.4f} ms, bound {bnd:.4f} "
+        f"ms ({by})")
+    merge = dict(name="blake3_merge", route="cuda",
+                 source="certificate_stark_tpu_torch/csrc/blake3.cu",
+                 replaces="certificate_stark_tpu/engine/hasher.py:120",
+                 max_abs_err=err, ms=ms_merge[m], plain_ms=plain,
+                 bound_ms=bnd, bound_by=by, library_ms=None, shape=[8, 2 * m],
+                 ms_by_pairs=ms_merge)
+    return [leaves, merge]
+
+
+def _trace_muls(inputs, depth, b3):
+    """32-bit multiplies of csrc/tx_trace.cu for these inputs: the Rescue
+    rounds, both scalar multiplications' doublings, the mixed additions of
+    the bits that are set, the final addition and the fp6 inverse."""
+    b3m = (6 if not any(b3[1:]) else 9 if not any(b3[2:]) else 18) \
+        * MULS_PER_MMUL
+    T = inputs["init"].shape[0]
+    rounds = 4 * 7 * (depth + 1) + 7 * 5
+    bits = int(inputs["sbits"][:, :255].sum()) + \
+        int(inputs["hbits"][:, :255].sum())
+    per_double = 11 * MULS_PER_F6MUL + 2 * b3m
+    per_add = 11 * MULS_PER_F6MUL + 2 * b3m
+    fixed = (rounds * MULS_PER_ROUND + 2 * 255 * per_double
+             + 12 * MULS_PER_F6MUL + 2 * b3m
+             + (384 + bin(F6_INV_EXP).count("1") + 1) * MULS_PER_F6MUL)
+    return T * fixed + bits * per_add
+
+
+def phase_trace_kernel(dev, ex):
+    """transaction_trace against its plain version on the main path's
+    witness (128 transactions, depth 15), bit for bit."""
+    from certificate_stark_tpu_torch.models import trace_device as TD
+    from certificate_stark_tpu_torch.ops import kernels as K
+    from certificate_stark_tpu_torch.utils import curve as CV
+    inputs, consts = TD.pack_witness(ex.md, ex.messages, dev)
+    got = K.transaction_trace(inputs, consts, ex.depth)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with K.plain_versions():
+        exp = TD.build_trace_plain(inputs, consts, ex.depth)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    err = int((got - exp).abs().max())
+    check(err == 0, "transaction_trace differs from its plain version")
+    ms = cuda_ms(lambda: K.transaction_trace(inputs, consts, ex.depth), 3)
+    nbytes = sum(t.numel() * 8 for t in inputs.values()) + got.numel() * 8
+    muls = _trace_muls(inputs, ex.depth, CV.B3_LIMBS)
+    bnd, by = bound_ms(nbytes, muls)
+    log(f"transaction_trace [94, {got.shape[1]}]: {ms:.3f} ms, plain "
+        f"{plain:.1f} ms, bound {bnd:.4f} ms ({by}, {muls} 32-bit "
+        f"multiplies)")
+    return dict(name="transaction_trace", route="cuda",
+                source="certificate_stark_tpu_torch/csrc/tx_trace.cu",
+                replaces="certificate_stark_tpu/models/trace_device.py:36",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                bound_by=by, library_ms=None, shape=list(got.shape))
+
+
+def _trace_sha(trace):
+    return hashlib.sha256(
+        trace.cpu().numpy().astype("<i8").tobytes()).hexdigest()
+
+
+def phase_tx_goldens(dev):
+    """The transaction goldens reproduced on the card: trace, public roots,
+    coin journal and proof bytes."""
+    from certificate_stark_tpu_torch.engine.options import ProofOptions
+    from certificate_stark_tpu_torch.engine.prover import Prover
+    from certificate_stark_tpu_torch.models import transaction as TX
+    from certificate_stark_tpu_torch.utils import curve as CV
+    with open(os.path.join(ROOT, "tests", "vectors",
+                           "torch_goldens.json")) as f:
+        goldens = json.load(f)
+    for name in TX_GOLDENS:
+        g = goldens[name]
+        CV.set_curve(g["curve"])
+        t0 = time.perf_counter()
+        ex = TX.TransactionExample(g["num_transactions"],
+                                   ProofOptions(**g["options"]),
+                                   depth=g["depth"], seed=g["seed"],
+                                   device=dev)
+        check([list(r) for r in ex.pub_inputs()] ==
+              [g["initial_root"], g["final_root"]], f"{name}: roots differ")
+        trace = ex.trace
+        check(_trace_sha(trace) == g["trace_sha256"], f"{name}: trace differs")
+        prover = Prover(ex.air(), device=dev)
+        prover.coin_journal = []
+        proof = prover.prove(trace)
+        _golden_check(name, g, prover, proof)
+        log(f"  {name}: {time.perf_counter() - t0:.1f} s with the witness")
+
+
+def phase_tx_full(dev, ex):
+    """The composed AIR at 128 transactions, depth 15, bench.py's options:
+    warm-up, then the counted and timed main-path run, the trace build
+    included as bench.py times it."""
+    from certificate_stark_tpu_torch.engine.prover import Prover
+    from certificate_stark_tpu_torch.ops import kernels as K
+    t0 = time.perf_counter()
+    prover = Prover(ex.air(), device=dev)
+    torch.cuda.synchronize()
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    warm = prover.prove(ex.trace).to_bytes()                 # warm-up
+
+    spans = []
+    t_last = [0.0]
+
+    def mark(label):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        spans.append((label, (now - t_last[0]) * 1e3))
+        t_last[0] = now
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = t_last[0] = time.perf_counter()
+    trace = ex.trace
+    mark("trace build (pack + kernel)")
+    proof = prover.prove(trace, mark=mark)
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in K.WRAPPERS}
+    peak = torch.cuda.max_memory_allocated()
+    raw = proof.to_bytes()
+    log(f"{TX_COUNT} tx depth {TX_DEPTH} prove wall (trace build included): "
+        f"{wall * 1e3:.1f} ms; prover set-up {setup_ms:.1f} ms")
+    for label, ms in spans:
+        log(f"  {label:32s} {ms:10.1f} ms")
+    log(f"  peak device memory {peak / 2**20:.0f} MiB; kernel launches "
+        f"{launches}")
+    for name in ("f63_mul", "blake3_leaves", "blake3_merge",
+                 "transaction_trace"):
+        check(launches[name] > 0, f"{name} was not launched on the "
+              "transaction main path")
+    check(raw == warm, "two proofs of the same statement differ")
+    log(f"  proof {len(raw)} B, sha256 {hashlib.sha256(raw).hexdigest()[:16]}"
+        f"..., security {proof.security_level()} bits")
+    return prover, raw, launches
+
+
+def _device_by_name(prof):
+    from torch.autograd import DeviceType
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        tot, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.device_time_total / 1e3, cnt + 1)
+    return by_name
+
+
+def phase_tx_profile(dev, ex, prover):
+    """One warm 128-transaction proof (trace build included) under
+    torch.profiler: device time by kernel, busy share of the wall time;
+    then the constraint evaluation alone: its launches and device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from certificate_stark_tpu_torch.engine.fieldops import BASE
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prover.prove(ex.trace)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = _device_by_name(prof)
+    device_ms = sum(t for t, _ in by_name.values())
+    log(f"profile, {TX_COUNT} tx warm proof (trace build included): wall "
+        f"{wall_ms:.1f} ms, device busy {device_ms:.1f} ms "
+        f"({100 * device_ms / wall_ms:.1f}%), "
+        f"{sum(c for _, c in by_name.values())} kernel launches")
+    groups = {}
+    for name, (t, c) in by_name.items():
+        key = next((k for k in ("f63_mul", "blake3_leaves", "blake3_merge",
+                                "transaction_trace", "rescue_perm")
+                    if k in name), "PyTorch ops")
+        gt, gc = groups.get(key, (0.0, 0))
+        groups[key] = (gt + t, gc + c)
+    for key, (t, c) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        log(f"  {t:9.3f} ms {c:6d}x {key}")
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"  {t:9.3f} ms {c:6d}x {name[:90]}")
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trace = ex.trace
+        torch.cuda.synchronize()
+    log("profile, trace build alone: " + ", ".join(
+        f"{name[:40]} {t:.3f} ms {c}x"
+        for name, (t, c) in _device_by_name(prof).items()))
+
+    lde = prover.phase_trace(trace)[1]
+    nxt = torch.roll(lde, -prover.b, dims=-1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prover.air.evaluate_transition(BASE, lde, nxt, prover.periodic)
+        torch.cuda.synchronize()
+        eval_wall = (time.perf_counter() - t0) * 1e3
+    ev = _device_by_name(prof)
+    eval_ms = sum(t for t, _ in ev.values())
+    eval_n = sum(c for _, c in ev.values())
+    log(f"constraint evaluation over {lde.shape[1]} points: wall "
+        f"{eval_wall:.1f} ms, device {eval_ms:.1f} ms in {eval_n} launches "
+        f"(f63_mul {sum(c for n, (_, c) in ev.items() if 'f63_mul' in n)})")
+
+
+def phase_tx_plain(dev, ex, kernel_raw):
+    """The 128-transaction proof with the plain versions, trace build
+    included: the same bytes as with the kernels."""
+    from certificate_stark_tpu_torch.engine.prover import Prover
+    from certificate_stark_tpu_torch.ops import kernels as K
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with K.plain_versions():
+        prover = Prover(ex.air(), device=dev)
+        raw = prover.prove(ex.trace).to_bytes()
+    torch.cuda.synchronize()
+    log(f"{TX_COUNT} tx prove with plain versions (trace build and prover "
+        f"set-up included): {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    check(raw == kernel_raw, f"{TX_COUNT} tx: the proof with kernels differs "
+          "from the plain one")
+    log(f"{TX_COUNT} tx: proofs with kernels and with plain versions are "
+        f"equal, sha256 {hashlib.sha256(raw).hexdigest()[:16]}...")
+
+
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -465,13 +776,28 @@ def main():
         print(json.dumps(dict(rescue=row, sass=sass, profile=prof)))
         print(card_line())
         return 0
-    rows = phase_kernels(dev)
+    from certificate_stark_tpu_torch.engine.options import ProofOptions
+    from certificate_stark_tpu_torch.models import transaction as TX
+    rows = phase_kernels(dev) + phase_blake3(dev)
     phase_golden16(dev)
-    launches = phase_full(dev)
+    chain_launches = phase_full(dev)
     phase_profile(dev)
     phase_scale(dev)
+    phase_tx_goldens(dev)
+    t0 = time.perf_counter()
+    ex = TX.TransactionExample(TX_COUNT, ProofOptions(**BENCH_OPTS),
+                               depth=TX_DEPTH, device=dev)
+    log(f"witness, {TX_COUNT} tx depth {TX_DEPTH} (host Python): "
+        f"{time.perf_counter() - t0:.1f} s")
+    rows.append(phase_trace_kernel(dev, ex))
+    prover, raw, tx_launches = phase_tx_full(dev, ex)
+    phase_tx_profile(dev, ex, prover)
+    phase_tx_plain(dev, ex, raw)
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        path = "chain1024" if row["name"] == "rescue_permutation" else "tx128"
+        row["launches"] = (chain_launches if path == "chain1024"
+                           else tx_launches)[row["name"]]
+        row["path"] = path
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -1,15 +1,29 @@
 #!/usr/bin/env python
-"""Generate the full-size golden that the PyTorch port is held to on the GPU
+"""Generate the goldens that the PyTorch port is held to
 (tests/vectors/torch_goldens.json).
 
-The JAX package proves the rescue hash chain of length 1024 (trace 14 x 8192,
-blowup 4, 42 queries, Rescue commitments, FRI fold 4 / remainder 256: the
-`bench.py` `_bench_rescue_chain` options with hash_fn="rescue") on the CPU,
-verifies it, and records the proof's SHA-256, its length and the coin journal.
-`chip_smoke.py` proves the same statement with the port on the card and
-compares. Run once, with JAX on the CPU:
+The JAX package proves each statement on the CPU, its verifier accepts the
+proof, and the proof's SHA-256, its length and the coin journal are recorded
+(for the transaction goldens also the trace's SHA-256 and the public roots).
+`chip_smoke.py` proves the same statements with the port on the card and
+compares; the CPU tests compare the two-transaction ones.
 
-    env JAX_PLATFORMS=cpu python scripts/gen_torch_goldens.py
+  rescue_chain1024_rescue      rescue hash chain 1024 (trace 14 x 8192),
+                               bench.py `_bench_rescue_chain` options with
+                               Rescue commitments
+  transaction_2tx_d3_rescue    composed state-transition AIR, 2 transactions,
+                               depth 3, the options and seed of
+                               tests/test_transaction.py
+  transaction_2tx_d3_blake3    the same with BLAKE3 commitments
+  transaction_16tx_d15_blake3  bench.py `_bench_transaction` options at its
+                               CPU-fallback size (16 transactions, depth 15,
+                               seed 42): the batched witness path
+
+The transaction goldens use the fp2 curve instance (the library default).
+Run with JAX on the CPU; names select goldens (default: all), and the file
+keeps the entries not regenerated:
+
+    env JAX_PLATFORMS=cpu python scripts/gen_torch_goldens.py [name ...]
 """
 import hashlib
 import json
@@ -21,17 +35,40 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
+import numpy as np  # noqa: E402
+
 from certificate_stark_tpu.engine import prover as PR  # noqa: E402
 from certificate_stark_tpu.engine.options import ProofOptions  # noqa: E402
-from certificate_stark_tpu.models import rescue_chain as RC  # noqa: E402
+from certificate_stark_tpu.ops import field as F  # noqa: E402
+from certificate_stark_tpu.utils import curve as CV  # noqa: E402
 
+PATH = os.path.join(ROOT, "tests", "vectors", "torch_goldens.json")
 CHAIN = 1024
+TX_TEST_OPTS = dict(num_queries=14, blowup=8, grinding_bits=0,
+                    hash_fn="rescue", extension_degree=1, fri_folding=4,
+                    fri_max_remainder=256)
+BENCH_OPTS = dict(num_queries=42, blowup=8, grinding_bits=0,
+                  hash_fn="blake3", extension_degree=1, fri_folding=4,
+                  fri_max_remainder=256)
 
 
-def main():
-    opts = ProofOptions(num_queries=42, blowup=4, grinding_bits=0,
-                        hash_fn="rescue", extension_degree=1,
-                        fri_folding=4, fri_max_remainder=256)
+def _record(opts_dict, prover, proof, t0, prove_s):
+    raw = proof.to_bytes()
+    return {
+        "options": opts_dict,
+        "journal": [[kind, val] for kind, val in prover.coin_journal],
+        "proof_sha256": hashlib.sha256(raw).hexdigest(),
+        "proof_len": len(raw),
+        "generated_by": "scripts/gen_torch_goldens.py (JAX package, CPU)",
+        "cpu_seconds": round(time.time() - t0, 1),
+        "cpu_prove_seconds": round(prove_s, 1),
+    }
+
+
+def chain_golden():
+    from certificate_stark_tpu.models import rescue_chain as RC
+    od = dict(TX_TEST_OPTS, num_queries=42, blowup=4)
+    opts = ProofOptions(**od)
     t0 = time.time()
     ex = RC.RescueChainExample(CHAIN, opts)
     air = RC.RescueChainAir(CHAIN * 8, ex.pub_inputs(), opts)
@@ -40,28 +77,66 @@ def main():
     proof = p.prove(ex.trace)
     prove_s = time.time() - t0
     assert ex.verify(proof)
-    raw = proof.to_bytes()
-    out = {
-        f"rescue_chain{CHAIN}_rescue": {
-            "chain_length": CHAIN,
-            "options": {"num_queries": 42, "blowup": 4, "grinding_bits": 0,
-                        "hash_fn": "rescue", "extension_degree": 1,
-                        "fri_folding": 4, "fri_max_remainder": 256},
-            "seed": ex.seed,
-            "result": ex.result,
-            "journal": [[kind, val] for kind, val in p.coin_journal],
-            "proof_sha256": hashlib.sha256(raw).hexdigest(),
-            "proof_len": len(raw),
-            "generated_by": "scripts/gen_torch_goldens.py (JAX package, CPU)",
-            "cpu_seconds": round(time.time() - t0, 1),
-            "cpu_prove_seconds": round(prove_s, 1),
-        }
-    }
-    path = os.path.join(ROOT, "tests", "vectors", "torch_goldens.json")
-    with open(path, "w") as f:
-        json.dump(out, f, indent=1, sort_keys=True)
-    print("wrote", path, "in", round(time.time() - t0, 1), "s")
+    out = _record(od, p, proof, t0, prove_s)
+    out.update(chain_length=CHAIN, seed=ex.seed, result=ex.result)
+    return out
+
+
+def transaction_golden(n_tx, depth, seed, od):
+    from certificate_stark_tpu.models import transaction as TX
+    CV.set_curve("fp2")
+    opts = ProofOptions(**od)
+    t0 = time.time()
+    ex = TX.TransactionExample(n_tx, opts, depth=depth, seed=seed)
+    witness_s = time.time() - t0
+    trace = TX.build_trace(ex.md, ex.messages)
+    words = np.ascontiguousarray(F.pack_u64(np.asarray(trace)))  # [94, n]
+    air = TX.TransactionAir(1024 * n_tx, ex.pub_inputs(), opts, depth=depth)
+    p = PR.Prover(air)
+    p.coin_journal = []
+    t1 = time.time()
+    proof = p.prove(trace)
+    prove_s = time.time() - t1
+    assert ex.verify(proof)
+    out = _record(od, p, proof, t0, prove_s)
+    out.update(num_transactions=n_tx, depth=depth, seed=seed, curve="fp2",
+               initial_root=[int(v) for v in ex.pub_inputs()[0]],
+               final_root=[int(v) for v in ex.pub_inputs()[1]],
+               trace_sha256=hashlib.sha256(
+                   words.astype("<u8").tobytes()).hexdigest(),
+               cpu_witness_seconds=round(witness_s, 1))
+    return out
+
+
+GOLDENS = {
+    f"rescue_chain{CHAIN}_rescue": chain_golden,
+    "transaction_2tx_d3_rescue":
+        lambda: transaction_golden(2, 3, 3, TX_TEST_OPTS),
+    "transaction_2tx_d3_blake3":
+        lambda: transaction_golden(2, 3, 3, dict(TX_TEST_OPTS,
+                                                 hash_fn="blake3")),
+    "transaction_16tx_d15_blake3":
+        lambda: transaction_golden(16, 15, 42, BENCH_OPTS),
+}
+
+
+def main(names):
+    names = names or list(GOLDENS)
+    unknown = sorted(set(names) - set(GOLDENS))
+    if unknown:
+        raise SystemExit(f"unknown goldens {unknown}; choices {list(GOLDENS)}")
+    goldens = {}
+    if os.path.exists(PATH):
+        with open(PATH) as f:
+            goldens = json.load(f)
+    for name in names:
+        t0 = time.time()
+        goldens[name] = GOLDENS[name]()
+        with open(PATH, "w") as f:
+            json.dump(goldens, f, indent=1, sort_keys=True)
+        print("wrote", name, "to", PATH, "in", round(time.time() - t0, 1),
+              "s", flush=True)
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])
