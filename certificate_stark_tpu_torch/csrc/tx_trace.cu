@@ -2,37 +2,63 @@
 // rows over 94 columns, written as the Montgomery trace [94, T*1024].
 //
 // Replaces certificate_stark_tpu/models/trace_device.py `build_trace_device`
-// (:36-119, lax.scan lanes in XLA). Template, nearly line for line:
-// native/air_eval.c `transaction_trace` (:670-806) and its helpers
-// `tx_rescue_round` (:637), `tx_inject` (:655), `ec_double` (:134),
-// `ec_add_mixed` (:163), `ec_add` (:196), `f6mul` (:85), `f6mulb3` (:123)
-// and `f6inv` (:620), with f63.cuh's word-level Montgomery arithmetic.
-// The plain version is models/trace_device.py `build_trace_plain`.
+// (:36-119 and the column lanes of `_jit_window`, :215-322: lax.scan lanes
+// in XLA). The fp6 and point arithmetic is native/air_eval.c's (`f6mul`
+// :85, `f6mulb3` :123, `ec_double` :134, `ec_add_mixed` :163, `ec_add`
+// :196, `f6inv` :620) with f63.cuh's word-level Montgomery arithmetic. The
+// plain version is models/trace_device.py `build_trace_plain`.
 //
-// Bound on the H100: one transaction is a chain of some 10^6 dependent
-// Montgomery multiplies (Rescue rounds on four clusters, then 255
-// double-and-add steps of two fp6 scalar multiplications), and it writes
-// 752 KB. One thread runs one transaction, so at 128 transactions the
-// kernel is 4 warps on 4 SMs and bound by the latency of that chain, not by
-// the card's multiply rate or memory. What the design does: a simple kernel
-// that is right first. Each thread keeps its 94-column state in local
-// memory (cached in L1), takes the fp6 products as 18 base products, sums
-// each Rescue MDS row unreduced and reduces once, and raises to 1/alpha
-// with the addition chain of f63_inv_sbox; a warp is a block, so the warps
-// land on different SMs.
+// Bound on the H100: one transaction is a few chains of dependent
+// Montgomery multiplies (the Rescue rounds of four Merkle clusters, 16 tree
+// levels x 7 rounds; the 5-cycle message-hash sponge; 255 double-and-add
+// pairs of two fp6 scalar multiplications; the final fp6 inverse) and it
+// writes 752 KB. At 128 transactions the card's multiply rate and memory
+// are far from the limit: the kernel is bound by the latency and issue
+// rate of those chains. What the design does:
+// - one block per transaction, its 1024-row window split into the column
+//   lanes of the JAX package, which never write each other's columns, so
+//   they run side by side on their own warps:
+//     warps 0-1  Merkle lane, cols 0..57 rows 0..511: the clusters S_INIT 0,
+//                S_UPD 15, R_INIT 29, R_UPD 44 on four 16-thread groups
+//                (rescue_perm.cu's layout: a thread holds one lane and its
+//                MDS row, an MDS layer gathers the group with shuffles; the
+//                sibling injection is a per-lane select); the bit registers
+//                14 and 43 on lane 14 of groups 0 and 2. Then the columns
+//                that are constant or copies: PREV_ROOT 58..64 (init rows,
+//                then the R_UPD digest from row thl), 65..91, and 92/93 on
+//                rows 0..511;
+//     warp 2     hash lane, cols 42..55 rows 512..1023 (5 sponge cycles of
+//                7 rounds on one 16-thread group, the message injected),
+//                and on lanes 16..23 the h-limb accumulator 38..41 and the
+//                range lanes 56/57, 92/93, one column a lane;
+//     warps 3-4  the EC lane, one warp a point: s.G on cols 0..18, h.P on
+//                cols 19..37; a point's double-and-add runs on lane 0 of
+//                its warp, with no divergence between points and an SM
+//                sub-partition each. At row 1023 the two warps meet through
+//                shared memory for the final addition and fp6 inverse;
+// - stores by row tiles: each lane puts its columns' values for 32 rows in
+//   shared memory, then its warp writes each column's 32 rows with
+//   consecutive threads on consecutive rows (one 256-byte store a column;
+//   the rows of a column are contiguous within a transaction's window).
 #include <cuda_runtime.h>
 
 #include "f63.cuh"
 
 #define WIDTH 94
 #define CYCLE 1024
-#define THREADS 32
+#define HALF 512
+#define TILE 32             // rows a warp buffers before it stores them
+#define PAD 33              // row stride of a shared tile, in u64
+#define GROUP 16            // threads of one Rescue state
+#define THREADS 160         // 5 warps: Merkle, Merkle, hash/range, s.G, h.P
 #define ONE_M 4287426845256712189ULL  // 2^64 mod p: Montgomery one
+#define FULL 0xffffffffu
 
 __device__ __forceinline__ u64 msub(u64 a, u64 b) {
     return a >= b ? a - b : a + (F63_P - b);
 }
 __device__ __forceinline__ u64 mdbl(u64 a) { return f63_add(a, a); }
+__device__ __forceinline__ u64 bit_m(u64 b) { return b ? ONE_M : 0; }
 
 // ---- fp2 / fp6 tower (ops/ecc.py, reference ecc.rs:424-548) --------------
 __device__ __forceinline__ void f2mul(const u64* a, const u64* b, u64* c) {
@@ -224,48 +250,262 @@ __device__ void ec_add(const u64* pt1, const u64* pt2, const u64* b3, u64* o) {
     }
 }
 
-// ---- Rescue round and sibling injection ----------------------------------
-// MDS row i of s: 14 unreduced products summed, reduced once.
-__device__ __forceinline__ u64 mds_row(const u64* __restrict__ mds, int i,
-                                       const u64* s) {
+// ---- Rescue on a 16-thread group (csrc/rescue_perm.cu's layout) ----------
+// Lane `row` of the MDS product over the lanes 0..13 of this thread's
+// group, reduced once; `mask` names the lanes that take part.
+__device__ __forceinline__ u64 mds_row(const u64 m[14], u64 s,
+                                       unsigned mask) {
     u32 c[4];
-    f63_mul_wide(__ldg(mds + i * 14), s[0], c[0], c[1], c[2], c[3]);
-    for (int j = 1; j < 14; j++) f63_mac(c, __ldg(mds + i * 14 + j), s[j]);
+    u64 s0 = join32(__shfl_sync(mask, lo32(s), 0, GROUP),
+                    __shfl_sync(mask, hi32(s), 0, GROUP));
+    f63_mul_wide(m[0], s0, c[0], c[1], c[2], c[3]);
+#pragma unroll
+    for (int j = 1; j < 14; j++) {
+        u64 sj = join32(__shfl_sync(mask, lo32(s), j, GROUP),
+                        __shfl_sync(mask, hi32(s), j, GROUP));
+        f63_mac(c, m[j], sj);
+    }
     return f63_redc_wide(c);
 }
 
-// One forward Rescue round on a 14-element state slice, ark row r.
-__device__ void rescue_round(u64* st, int r, const u64* __restrict__ mds,
-                             const u64* __restrict__ ark) {
-    u64 tmp[14];
-    for (int i = 0; i < 14; i++) st[i] = f63_mmul(f63_msqr(st[i]), st[i]);
-    for (int i = 0; i < 14; i++)
-        tmp[i] = f63_add(mds_row(mds, i, st), __ldg(ark + r * 28 + i));
-    for (int i = 0; i < 14; i++) tmp[i] = f63_inv_sbox(tmp[i]);
-    for (int i = 0; i < 14; i++)
-        st[i] = f63_add(mds_row(mds, i, tmp), __ldg(ark + r * 28 + 14 + i));
+// One forward Rescue round r on the group's state, this lane's value s
+// (lanes 14-15 run row 0 along; no lane reads them).
+__device__ __forceinline__ u64 rescue_round(u64 s, int r, int row,
+                                            const u64 m[14],
+                                            const u64* __restrict__ ark,
+                                            unsigned mask) {
+    s = f63_mmul(f63_msqr(s), s);
+    s = f63_add(mds_row(m, s, mask), __ldg(ark + r * 28 + row));
+    s = f63_inv_sbox(s);
+    return f63_add(mds_row(m, s, mask), __ldg(ark + r * 28 + 14 + row));
 }
 
-// Sibling injection for one cluster pair (update/trace.rs:96-136).
-__device__ void inject(u64* state, int base, const u64* sib, u64 bit) {
-    for (int k = 0; k < 2; k++) {
-        int reg = base + 15 * k;
-        u64 digest[7];
-        for (int i = 0; i < 7; i++) digest[i] = state[reg + i];
-        for (int i = 0; i < 7; i++) {
-            u64 s = __ldg(sib + i);
-            state[reg + 7 + i] = bit ? digest[i] : s;
-            state[reg + i] = bit ? s : digest[i];
+__device__ __forceinline__ u64 shfl64(unsigned mask, u64 v, int src) {
+    return join32(__shfl_sync(mask, lo32(v), src, GROUP),
+                  __shfl_sync(mask, hi32(v), src, GROUP));
+}
+
+// Writes `ncols` buffered columns of 32 rows, from row `row0` of this
+// transaction's window: column c of the tile to trace column col(c).
+template <typename ColOf>
+__device__ __forceinline__ void store_tile(u64 (*tile)[PAD], int ncols,
+                                           ColOf col, u64* out_t, long long n,
+                                           int row0, int lane) {
+    __syncwarp();
+    for (int c = 0; c < ncols; c++)
+        out_t[(long long)col(c) * n + row0 + lane] = tile[c][lane];
+    __syncwarp();
+}
+
+// Writes one column's rows [r0, r1) (multiples of 32) of a value that is
+// `lo` before row `split` and `hi` from it, with the whole warp.
+__device__ __forceinline__ void store_const(u64* out_t, long long n, int col,
+                                            int r0, int r1, int split, u64 lo,
+                                            u64 hi, int lane) {
+    for (int r = r0 + lane; r < r1; r += 32)
+        out_t[(long long)col * n + r] = r < split ? lo : hi;
+}
+
+struct Shared {
+    u64 merkle[2][29][PAD];  // warp 0: cols 0..28; warp 1: cols 29..57
+    u64 tail[22][PAD];       // warp 2: cols 42..55, 38..41, 56, 57, 92, 93
+    u64 ec[2][19][PAD];      // warps 3 / 4: cols 0..18 / 19..37
+    u64 hp[18];              // h.P after its last double-and-add
+    u64 root[7];             // R_UPD digest from row thl (PREV_ROOT)
+};
+
+__device__ __forceinline__ int tail_col(int c) {
+    return c < 14 ? 42 + c : c < 18 ? 24 + c : c < 20 ? 38 + c : 72 + c;
+}
+
+// Merkle lane (warps 0-1), then the constant and copy columns.
+__device__ void merkle_lane(Shared& sh, int w, int lane, long long t,
+                            const u64* __restrict__ init,
+                            const u64* __restrict__ sibs,
+                            const u64* __restrict__ path_bits,
+                            const u64* __restrict__ mds,
+                            const u64* __restrict__ ark, int depth,
+                            u64* out_t, long long n) {
+    const int g = 2 * w + lane / GROUP, l = lane % GROUP;
+    const int base = g == 0 ? 0 : g == 1 ? 15 : g == 2 ? 29 : 44;
+    // lane 14 of groups 0 and 2 holds the bit register 14 / 43
+    const bool owned = l < 14 || (l == 14 && (g & 1) == 0);
+    const int col = base + l, c = col - 29 * w;
+    const int row = l < 14 ? l : 0;
+    const int thl = 8 * depth + 7;
+    const u64* inj = sibs + (t * 2 + w) * depth * 7;
+    const u64* bits = path_bits + (t * 2 + w) * depth;
+    u64 (*tile)[PAD] = sh.merkle[w];
+    u64 m[14];
+#pragma unroll
+    for (int j = 0; j < 14; j++) m[j] = __ldg(mds + row * 14 + j);
+    u64 v = owned ? __ldg(init + t * WIDTH + col) : 0;
+    if (owned) tile[c][0] = v;
+#pragma unroll 1
+    for (int step = 0; step < HALF - 1; step++) {
+        if (step < thl) {
+            const int pos = step & 7, cyc = step >> 3;
+            if (pos < 7) {
+                const u64 s = rescue_round(v, pos, row, m, ark, FULL);
+                if (l < 14) v = s;
+            } else {
+                // sibling injection (update/trace.rs:96-136): lanes 0..6
+                // take the sibling or keep the digest, lanes 7..13 the
+                // other, lane 14 the bit
+                const u64 bit = __ldg(bits + cyc);
+                const u64 sib = __ldg(inj + cyc * 7 + (l < 7 ? l : l < 14 ? l - 7 : 0));
+                const u64 dig = shfl64(FULL, v, l >= 7 && l < 14 ? l - 7 : l);
+                v = l < 7 ? (bit ? sib : v)
+                  : l < 14 ? (bit ? dig : sib) : bit_m(bit);
+            }
+        }
+        const int r = step + 1;
+        if (owned) tile[c][r % TILE] = v;
+        if (r % TILE == TILE - 1)
+            store_tile(tile, 29, [w](int k) { return 29 * w + k; }, out_t, n,
+                       r - (TILE - 1), lane);
+    }
+    if (w == 1 && g == 3 && l < 7) sh.root[l] = v;
+    __syncwarp();
+    if (w == 1) {
+        for (int i = 0; i < 7; i++)
+            store_const(out_t, n, 58 + i, 0, CYCLE, thl,
+                        __ldg(init + t * WIDTH + 58 + i), sh.root[i], lane);
+    } else {
+        for (int k = 65; k < 92; k++) {
+            const u64 x = __ldg(init + t * WIDTH + k);
+            store_const(out_t, n, k, 0, CYCLE, CYCLE, x, x, lane);
+        }
+        for (int k = 92; k < 94; k++) {
+            const u64 x = __ldg(init + t * WIDTH + k);
+            store_const(out_t, n, k, 0, HALF, HALF, x, x, lane);
         }
     }
-    state[base + 14] = bit ? ONE_M : 0;
+}
+
+// Warp 2: the hash lane on lanes 0..15, the h-limb accumulator (38..41) and
+// the range lanes (56 bit, 57 acc; 92 bit, 93 acc) on lanes 16..23.
+__device__ void hash_range_lane(Shared& sh, int lane, long long t,
+                                const u64* __restrict__ rx,
+                                const u64* __restrict__ msg,
+                                const u64* __restrict__ hbits,
+                                const u64* __restrict__ dbits,
+                                const u64* __restrict__ gbits,
+                                const u64* __restrict__ mds,
+                                const u64* __restrict__ ark, u64* out_t,
+                                long long n) {
+    u64 (*tile)[PAD] = sh.tail;
+    const bool hash = lane < GROUP;
+    const int l = lane % GROUP;            // hash lane / pure lane index
+    const int row = hash && l < 14 ? l : 0;
+    const int c = hash ? l : 14 + l;       // tile column, owned when < 22
+    const bool owned = hash ? l < 14 : l < 8;
+    u64 m[14];
+#pragma unroll
+    for (int j = 0; j < 14; j++) m[j] = __ldg(mds + row * 14 + j);
+    u64 v = hash && l < 6 ? __ldg(rx + t * 6 + l) : 0;
+    if (owned) tile[c][0] = v;
+    const u64* hb_t = hbits + t * 256;
+    const u64* rb_t = (l < 6 ? dbits : gbits) + t * 64;
+#pragma unroll 1
+    for (int sstep = 0; sstep < HALF - 1; sstep++) {
+        if (hash) {
+            if (sstep < 40) {
+                const int pos = sstep & 7;
+                if (pos < 7) {
+                    const u64 s = rescue_round(v, pos, row, m, ark, 0xffffu);
+                    if (l < 14) v = s;
+                } else if (l >= 7 && l < 14) {
+                    v = sstep < 32 ? __ldg(msg + (t * 4 + sstep / 8) * 7 + l - 7)
+                                   : 0;
+                }
+            }
+        } else if (l < 4) {
+            // acc[41 - chunk] = 2 acc + h bit on the even step of each pair
+            if (sstep < 510 && (sstep & 1) == 0) {
+                const int real = sstep / 2;
+                const int chunk = real < 63 ? 0 : (real - 63) / 64 + 1;
+                if (3 - chunk == l)
+                    v = f63_add(mdbl(v), bit_m(__ldg(hb_t + 254 - real)));
+            }
+        } else if (l < 8 && sstep < 64) {
+            const u64 bit = bit_m(__ldg(rb_t + 63 - sstep));
+            v = (l & 1) ? f63_add(mdbl(v), bit) : bit;
+        }
+        const int r = HALF + sstep + 1;
+        if (owned) tile[c][r % TILE] = v;
+        if (r % TILE == TILE - 1)
+            store_tile(tile, 22, [](int k) { return tail_col(k); }, out_t, n,
+                       r - (TILE - 1), lane);
+    }
+}
+
+// Warps 3-4: one scalar multiplication each, on lane 0, cols 0..18 (s.G)
+// or 19..37 (h.P); rows 512..1023.
+__device__ void ec_lane(Shared& sh, int pt, int lane, long long t,
+                        const u64* __restrict__ q12,
+                        const u64* __restrict__ bits,
+                        const u64* __restrict__ b3g, u64* out_t,
+                        long long n) {
+    u64 (*tile)[PAD] = sh.ec[pt];
+    const int col0 = 19 * pt;
+    auto col = [col0](int k) { return col0 + k; };
+    u64 p[18], q[12], b3[6], breg = 0;
+    if (lane == 0) {
+        for (int i = 0; i < 18; i++) p[i] = i == 6 ? ONE_M : 0;
+        for (int i = 0; i < 12; i++) q[i] = __ldg(q12 + i);
+        for (int i = 0; i < 6; i++) b3[i] = __ldg(b3g + i);
+        for (int i = 0; i < 19; i++) tile[i][0] = i < 18 ? p[i] : 0;
+    }
+#pragma unroll 1
+    for (int r0 = HALF; r0 < CYCLE; r0 += TILE) {
+        if (lane == 0) {
+#pragma unroll 1
+            for (int r = r0 == HALF ? r0 + 1 : r0; r < r0 + TILE; r++) {
+                const int sstep = r - HALF - 1;
+                if (sstep < 510) {
+                    const int real = sstep / 2;
+                    const u64 bit = __ldg(bits + 254 - real);
+                    breg = bit_m(bit);
+                    u64 o[18];
+                    if ((sstep & 1) == 0) {
+                        ec_double(p, b3, o);
+                        for (int i = 0; i < 18; i++) p[i] = o[i];
+                    } else if (bit) {
+                        ec_add_mixed(p, q, b3, o);
+                        for (int i = 0; i < 18; i++) p[i] = o[i];
+                    }
+                } else if (pt == 1) {
+                    for (int i = 0; i < 18; i++) sh.hp[i] = p[i];
+                }
+                if (sstep < 510 || pt == 1)
+                    for (int i = 0; i < 19; i++)
+                        tile[i][r % TILE] = i < 18 ? p[i] : breg;
+            }
+        }
+        if (r0 + TILE == CYCLE) {
+            // row 1023: s.G + h.P, then its affine x
+            __syncwarp();
+            asm volatile("bar.sync 1, 64;" ::: "memory");
+            if (pt == 0 && lane == 0) {
+                u64 o[18], zinv[6], xn[6];
+                ec_add(p, sh.hp, b3, o);
+                f6inv(o + 12, zinv);
+                f6mul(o, zinv, xn);
+                for (int i = 0; i < 18; i++)
+                    tile[i][TILE - 1] = i < 6 ? xn[i] : o[i];
+                tile[18][TILE - 1] = ONE_M;
+            }
+        }
+        store_tile(tile, 19, col, out_t, n, r0, lane);
+    }
 }
 
 // Register map (models/transaction.py, models/merkle_update.py): clusters
 // 0, 15, 29, 44 (+ bit registers 14, 43); PREV_ROOT 58; copies 65..92;
 // Schnorr points 0..17 / 19..36 with bit registers 18 / 37, recomposition
 // 38..41, hash state 42..55; delta range 56 / 57; sigma range 92 / 93.
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 transaction_trace_kernel(
     const u64* __restrict__ init,       // [T, 94]
     const u64* __restrict__ sibs,       // [T, 2, depth, 7]
@@ -282,106 +522,22 @@ transaction_trace_kernel(
     const u64* __restrict__ mds,        // [14, 14]
     const u64* __restrict__ ark,        // [8, 28]
     int depth, long long T, u64* __restrict__ out) {
-    const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
-    if (t >= T) return;
+    __shared__ Shared sh;
+    const long long t = blockIdx.x;
     const long long n = T * CYCLE;
-    const int thl = 8 * depth + 7;
-    u64 state[WIDTH], gen[12], pk[12], b3[6];
-    for (int i = 0; i < WIDTH; i++) state[i] = init[t * WIDTH + i];
-    for (int i = 0; i < 12; i++) gen[i] = __ldg(gen12 + i);
-    for (int i = 0; i < 12; i++) pk[i] = pkey[t * 12 + i];
-    for (int i = 0; i < 6; i++) b3[i] = __ldg(b3g + i);
-    const u64* sib_s = sibs + t * 2 * depth * 7;
-    const u64* sib_r = sib_s + depth * 7;
-    const u64* bit_s = path_bits + t * 2 * depth;
-    const u64* bit_r = bit_s + depth;
-    const u64 *sb_t = sbits + t * 256, *hb_t = hbits + t * 256;
-    const u64 *db_t = dbits + t * 64, *gb_t = gbits + t * 64;
-    const long long col0 = t * CYCLE;
-
-    for (int i = 0; i < WIDTH; i++) out[(long long)i * n + col0] = state[i];
-    for (int step = 0; step < CYCLE - 1; step++) {
-        if (step < 511) {
-            if (step < thl) {
-                const int cyc = step / 8, pos = step % 8;
-                if (pos < 7) {
-                    rescue_round(state + 0, pos, mds, ark);
-                    rescue_round(state + 15, pos, mds, ark);
-                    rescue_round(state + 29, pos, mds, ark);
-                    rescue_round(state + 44, pos, mds, ark);
-                } else {
-                    inject(state, 0, sib_s + cyc * 7, bit_s[cyc]);
-                    inject(state, 29, sib_r + cyc * 7, bit_r[cyc]);
-                }
-            }
-            if (step == thl - 1)
-                for (int i = 0; i < 7; i++) state[58 + i] = state[44 + i];
-        } else if (step == 511) {
-            for (int i = 0; i < 58; i++) state[i] = 0;
-            state[6] = ONE_M;                       // y(S) = 1
-            state[25] = ONE_M;                      // y(h.P) = 1
-            for (int i = 0; i < 6; i++) state[42 + i] = rx[t * 6 + i];
-            state[92] = 0;
-            state[93] = 0;
-        } else {
-            const int sstep = step - 512;
-            // hash lane: cols 42..56
-            if (sstep < 40) {
-                const int pos = sstep % 8;
-                if (pos < 7)
-                    rescue_round(state + 42, pos, mds, ark);
-                else if (sstep < 32)
-                    for (int i = 0; i < 7; i++)
-                        state[49 + i] = msg[(t * 4 + sstep / 8) * 7 + i];
-                else
-                    for (int i = 0; i < 7; i++) state[49 + i] = 0;
-            }
-            // scalar-mul lane: cols 0..42
-            if (sstep < 510) {
-                const int real = sstep / 2;
-                const int chunk = real < 63 ? 0 : (real - 63) / 64 + 1;
-                const u64 sb = sb_t[254 - real], hb = hb_t[254 - real];
-                state[18] = sb ? ONE_M : 0;
-                state[37] = hb ? ONE_M : 0;
-                u64 o[18];
-                if ((sstep & 1) == 0) {
-                    ec_double(state + 0, b3, o);
-                    for (int i = 0; i < 18; i++) state[i] = o[i];
-                    ec_double(state + 19, b3, o);
-                    for (int i = 0; i < 18; i++) state[19 + i] = o[i];
-                    const int vp = 41 - chunk;
-                    state[vp] = f63_add(mdbl(state[vp]), state[37]);
-                } else {
-                    if (sb) {
-                        ec_add_mixed(state + 0, gen, b3, o);
-                        for (int i = 0; i < 18; i++) state[i] = o[i];
-                    }
-                    if (hb) {
-                        ec_add_mixed(state + 19, pk, b3, o);
-                        for (int i = 0; i < 18; i++) state[19 + i] = o[i];
-                    }
-                }
-            } else if (sstep == 510) {
-                u64 hp[18], o[18], zinv[6], xn[6];
-                for (int i = 0; i < 18; i++) hp[i] = state[19 + i];
-                state[18] = ONE_M;
-                ec_add(state + 0, hp, b3, o);
-                for (int i = 0; i < 18; i++) state[i] = o[i];
-                f6inv(state + 12, zinv);
-                f6mul(state + 0, zinv, xn);
-                for (int i = 0; i < 6; i++) state[i] = xn[i];
-            }
-            // range lanes: cols 56/57 (delta), 92/93 (sigma)
-            if (sstep < 64) {
-                state[56] = db_t[63 - sstep] ? ONE_M : 0;
-                state[57] = f63_add(mdbl(state[57]), state[56]);
-                state[92] = gb_t[63 - sstep] ? ONE_M : 0;
-                state[93] = f63_add(mdbl(state[93]), state[92]);
-            }
-        }
-        const long long col = col0 + step + 1;
-        for (int i = 0; i < WIDTH; i++) out[(long long)i * n + col] = state[i];
-    }
+    u64* out_t = out + t * CYCLE;
+    const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (w < 2)
+        merkle_lane(sh, w, lane, t, init, sibs, path_bits, mds, ark, depth,
+                    out_t, n);
+    else if (w == 2)
+        hash_range_lane(sh, lane, t, rx, msg, hbits, dbits, gbits, mds, ark,
+                        out_t, n);
+    else if (w == 3)
+        ec_lane(sh, 0, lane, t, gen12, sbits + t * 256, b3g, out_t, n);
+    else
+        ec_lane(sh, 1, lane, t, pkey + t * 12, hbits + t * 256, b3g, out_t,
+                n);
 }
 
 // Inputs in the order of ops/kernels.py TRACE_INPUTS, then the constant
@@ -394,8 +550,7 @@ extern "C" int transaction_trace_launch(
     const void* b3, const void* mds, const void* ark, int depth, long long T,
     void* out, void* stream) {
     if (T <= 0) return 0;
-    long long blocks = (T + THREADS - 1) / THREADS;
-    transaction_trace_kernel<<<(unsigned)blocks, THREADS, 0,
+    transaction_trace_kernel<<<(unsigned)T, THREADS, 0,
                                (cudaStream_t)stream>>>(
         (const u64*)init, (const u64*)sibs, (const u64*)path_bits,
         (const u64*)pkey, (const u64*)rx, (const u64*)sbits,

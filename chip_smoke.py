@@ -79,6 +79,15 @@ TX_COUNT, TX_DEPTH = 128, 15
 LEAF_SHAPES = ((94, 1 << 20), (8, 1 << 20), (4, 1 << 18), (94, 1000),
                (7, 333), (1, 1), (128, 3))
 MERGE_PAIRS = sorted({1 << e for e in range(20)} | {3, 1000})
+# Seeded random inputs on which the trace kernel is held against its plain
+# version beside the main path's witness: (transactions, depth, b3 form);
+# one plain call each (~20 s on the card)
+TRACE_CASES = ((1, 1, "full_fp6"), (33, 15, "subfield"), (33, 15, "fp2"),
+               (33, 15, "full_fp6"))
+TRACE_BITS = ("path_bits", "sbits", "hbits", "dbits", "gbits")
+# dependent Montgomery multiplies of one Rescue round: x^3 (a squaring, a
+# multiply), the inverse s-box chain, and one reduction for each MDS layer
+RESCUE_DEPTH = 2 + INV_ALPHA_SQR + INV_ALPHA_MUL + 2
 TX_GOLDENS = ("transaction_2tx_d3_rescue", "transaction_2tx_d3_blake3",
               "transaction_16tx_d15_blake3")
 # Batch sizes at which the Rescue kernel is checked and timed: every size a
@@ -136,14 +145,18 @@ def phase_versions():
 
 
 def phase_build():
+    """Builds every kernel, and the latency probe beside them; returns the
+    probe's (process, library)."""
     from certificate_stark_tpu_torch.ops import kernels as K
     t0 = time.perf_counter()
+    probe = _probe_start()
     paths = K.build()
     log(f"build: {time.perf_counter() - t0:.2f} s")
     for name, path in paths.items():
         for line in open(path + ".log").read().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    return probe
 
 
 def _randoms(dev):
@@ -557,34 +570,202 @@ def _trace_muls(inputs, depth, b3):
     return T * fixed + bits * per_add
 
 
-def phase_trace_kernel(dev, ex):
-    """transaction_trace against its plain version on the main path's
-    witness (128 transactions, depth 15), bit for bit."""
+def _trace_chain(inputs, depth):
+    """The longest chain of dependent Montgomery multiplies in one
+    transaction window of csrc/tx_trace.cu, over the lanes that run side by
+    side, for these inputs: (chain, lane). A Rescue round is RESCUE_DEPTH
+    deep; a doubling, a mixed addition and the final addition each add 3 to
+    a point's depth (their products read sums of the point's coordinates, a
+    product of products at most twice more); the fp6 inverse's
+    square-and-multiply adds one a squaring and one a multiply that the
+    running product waits for; the affine x one more."""
+    merkle = 7 * (depth + 1) * RESCUE_DEPTH
+    hashl = 7 * 5 * RESCUE_DEPTH
+    pop = torch.maximum(inputs["sbits"][:, :255].sum(1),
+                        inputs["hbits"][:, :255].sum(1))
+    r = base = 0
+    for i in range(F6_INV_EXP.bit_length()):
+        if F6_INV_EXP >> i & 1:
+            r = max(r, base) + 1
+        base += 1
+    ec = 3 * 255 + 3 * int(pop.max()) + 3 + r + 1
+    return max((merkle, "Merkle"), (hashl, "hash"), (ec, "EC"))
+
+
+PROBE_SRC = r"""
+#include <cuda_runtime.h>
+#include "f63.cuh"
+// one thread: n dependent Montgomery multiplies
+__global__ void f63_chain(u64* out, u64 x, u64 y, long long n) {
+#pragma unroll 8
+    for (long long i = 0; i < n; i++) x = f63_mmul(x, y);
+    *out = x;
+}
+extern "C" int f63_chain_launch(void* out, long long n, void* stream) {
+    f63_chain<<<1, 1, 0, (cudaStream_t)stream>>>(
+        (u64*)out, 1234567891011ULL, 987654321987ULL, n);
+    return (int)cudaGetLastError();
+}
+"""
+
+
+def _probe_start():
+    """Starts nvcc on the latency probe (one thread, a chain of dependent
+    f63.cuh Montgomery multiplies): (process, library path)."""
+    from certificate_stark_tpu_torch.ops import kernels as K
+    d = os.path.join(OUT, "probe")
+    os.makedirs(d, exist_ok=True)
+    src, lib = os.path.join(d, "f63_chain.cu"), os.path.join(d, "f63_chain.so")
+    with open(src, "w") as f:
+        f.write(PROBE_SRC)
+    cmd = [K._nvcc()] + K.NVCC_FLAGS + ["-I", K.CSRC, "-o", lib, src]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT), lib
+
+
+def phase_latency(probe, dev):
+    """ns of one dependent Montgomery multiply on one thread: the time of a
+    chain of 2^18 less one of 2^16, over the 3 * 2^16 multiplies between."""
+    import ctypes
+    proc, lib = probe
+    out = proc.communicate()[0].decode(errors="replace")
+    check(proc.returncode == 0, f"latency probe does not build:\n{out}")
+    fn = ctypes.CDLL(lib).f63_chain_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    buf = torch.empty(1, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ms = {n: cuda_ms(lambda: check(fn(buf.data_ptr(), n, stream) == 0,
+                                   "latency probe launch"), 5)
+          for n in (1 << 16, 1 << 18)}
+    ns = (ms[1 << 18] - ms[1 << 16]) * 1e6 / (3 << 16)
+    log(f"dependent Montgomery multiply on one thread: {ns:.3f} ns "
+        f"({ms[1 << 16]:.4f} ms for 2^16, {ms[1 << 18]:.4f} ms for 2^18)")
+    return ns
+
+
+def _ptxas_usage(name, func):
+    """Registers, stack frame and spill bytes a thread of kernel `func`, from
+    the -Xptxas -v report of library `name`."""
+    from certificate_stark_tpu_torch.ops import kernels as K
+    text = open(K.build()[name] + ".log").read()
+    use = {}
+    for block in text.split("ptxas info    : Compiling entry function")[1:]:
+        if func not in block.splitlines()[0]:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("stack_bytes", r"(\d+) bytes stack frame"),
+                         ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                         ("spill_load_bytes", r"(\d+) bytes spill loads")):
+            m = re.search(pat, block)
+            use[key] = int(m.group(1)) if m else None
+    return use
+
+
+def _b3_forms():
+    """The curve constant's three forms, standard-form ints: the subfield
+    and fp2 curves' b3, and a random full fp6 element (numpy seed 99)."""
+    import numpy as np
+    from certificate_stark_tpu_torch.ops import field as F
+    from certificate_stark_tpu_torch.utils import curve as CV
+    rng = np.random.default_rng(99)
+    full = [int(v) for v in rng.integers(0, F.P, size=6, dtype=np.uint64)]
+    return {"subfield": [3 * v % F.P for v in CV._load("subfield")["b_limbs"]],
+            "fp2": [3 * v % F.P for v in CV._load("fp2")["b_limbs"]],
+            "full_fp6": full}
+
+
+def _random_trace_inputs(T, depth, b3, seed, dev):
+    """Seeded random trace inputs (numpy): random Montgomery values, random
+    0/1 bits, a random gen12, the curve constant b3 (standard-form ints)."""
+    import numpy as np
+    from certificate_stark_tpu_torch.ops import field as F
+    from certificate_stark_tpu_torch.ops import kernels as K
+    from certificate_stark_tpu_torch.ops import rescue as R
+    rng = np.random.default_rng(seed)
+
+    def vals(shape):
+        return torch.from_numpy(rng.integers(0, F.P, size=shape,
+                                             dtype=np.int64)).to(dev)
+    inputs = {}
+    for name, shape in K.TRACE_INPUTS:
+        shape = (T,) + tuple(depth if s == "d" else s for s in shape)
+        inputs[name] = (torch.from_numpy(rng.integers(0, 2, size=shape))
+                        .to(dev) if name in TRACE_BITS else vals(shape))
+    mds, _, ark = R.tables(dev)
+    consts = dict(gen12=vals((12,)), b3=F.from_ints(b3, dev), mds=mds,
+                  ark=ark)
+    return inputs, consts
+
+
+def _trace_check(inputs, consts, depth, what):
+    """The kernel against its plain version, bit for bit: max abs err."""
     from certificate_stark_tpu_torch.models import trace_device as TD
     from certificate_stark_tpu_torch.ops import kernels as K
-    from certificate_stark_tpu_torch.utils import curve as CV
-    inputs, consts = TD.pack_witness(ex.md, ex.messages, dev)
-    got = K.transaction_trace(inputs, consts, ex.depth)
+    got = K.transaction_trace(inputs, consts, depth)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with K.plain_versions():
-        exp = TD.build_trace_plain(inputs, consts, ex.depth)
+        exp = TD.build_trace_plain(inputs, consts, depth)
     torch.cuda.synchronize()
     plain = (time.perf_counter() - t0) * 1e3
     err = int((got - exp).abs().max())
-    check(err == 0, "transaction_trace differs from its plain version")
-    ms = cuda_ms(lambda: K.transaction_trace(inputs, consts, ex.depth), 3)
+    if err:
+        bad = (got != exp).reshape(94, -1, 1024).nonzero()
+        log(f"  {what}: {bad.shape[0]} cells differ; first (col, tx, row): "
+            f"{bad[:8].tolist()}")
+    check(err == 0, f"transaction_trace differs from its plain version "
+          f"({what})")
+    log(f"transaction_trace == plain ({what}); plain {plain:.1f} ms")
+    return plain
+
+
+def phase_trace_kernel(dev, ex, latency_ns):
+    """transaction_trace against its plain version bit for bit: on the main
+    path's witness (128 transactions, depth 15; `ex`, or seeded random
+    inputs of that size where `ex` is None) and on seeded random inputs of
+    TRACE_CASES, each b3 form once at least. Then its time at the main
+    path's size, its bounds (throughput; critical path: the longest chain
+    of dependent multiplies times `latency_ns`) and its registers, stack and
+    spills a thread."""
+    from certificate_stark_tpu_torch.models import trace_device as TD
+    from certificate_stark_tpu_torch.ops import kernels as K
+    from certificate_stark_tpu_torch.utils import curve as CV
+    forms = _b3_forms()
+    err = 0
+    for T, depth, form in TRACE_CASES:
+        inputs, consts = _random_trace_inputs(T, depth, forms[form],
+                                              1000 + T, dev)
+        _trace_check(inputs, consts, depth,
+                     f"random, {T} tx depth {depth}, b3 {form}")
+    if ex is None:
+        b3, depth = CV.B3_LIMBS, TX_DEPTH
+        inputs, consts = _random_trace_inputs(TX_COUNT, depth, b3, 7, dev)
+        what = f"random, {TX_COUNT} tx depth {depth}"
+    else:
+        b3, depth = CV.B3_LIMBS, ex.depth
+        inputs, consts = TD.pack_witness(ex.md, ex.messages, dev)
+        what = f"witness, {TX_COUNT} tx depth {depth}"
+    plain = _trace_check(inputs, consts, depth, what)
+    got = K.transaction_trace(inputs, consts, depth)
+    ms = cuda_ms(lambda: K.transaction_trace(inputs, consts, depth), 10)
     nbytes = sum(t.numel() * 8 for t in inputs.values()) + got.numel() * 8
-    muls = _trace_muls(inputs, ex.depth, CV.B3_LIMBS)
+    muls = _trace_muls(inputs, depth, b3)
     bnd, by = bound_ms(nbytes, muls)
-    log(f"transaction_trace [94, {got.shape[1]}]: {ms:.3f} ms, plain "
-        f"{plain:.1f} ms, bound {bnd:.4f} ms ({by}, {muls} 32-bit "
-        f"multiplies)")
+    chain, lane = _trace_chain(inputs, depth)
+    chain_ms = chain * latency_ns * 1e-6
+    use = _ptxas_usage("tx_trace", "transaction_trace")
+    log(f"transaction_trace [94, {got.shape[1]}] ({what}): {ms:.4f} ms, "
+        f"plain {plain:.1f} ms, bound {bnd:.4f} ms ({by}, {muls} 32-bit "
+        f"multiplies), critical-path bound {chain_ms:.4f} ms ({chain} "
+        f"dependent multiplies, {lane} lane, x {latency_ns:.3f} ns); {use}")
     return dict(name="transaction_trace", route="cuda",
                 source="certificate_stark_tpu_torch/csrc/tx_trace.cu",
                 replaces="certificate_stark_tpu/models/trace_device.py:36",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                bound_by=by, library_ms=None, shape=list(got.shape))
+                bound_by=by, library_ms=None, shape=list(got.shape),
+                critical_path_ms=chain_ms, chain=chain, chain_lane=lane,
+                latency_ns=latency_ns, **use)
 
 
 def _trace_sha(trace):
@@ -766,8 +947,17 @@ def main():
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     phase_versions()
-    phase_build()
+    probe = phase_build()
     sass = phase_sass()
+    latency_ns = phase_latency(probe, dev)
+    if sys.argv[1:] == ["--trace"]:
+        # the trace kernel's checks and measurements alone, for comparing
+        # checkouts
+        row = phase_trace_kernel(dev, None, latency_ns)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps(dict(trace=row)))
+        print(card_line())
+        return 0
     if sys.argv[1:] == ["--rescue"]:
         # the Rescue kernel's measurements alone, for comparing checkouts
         row = phase_rescue(dev, _randoms(dev))
@@ -789,7 +979,7 @@ def main():
                                depth=TX_DEPTH, device=dev)
     log(f"witness, {TX_COUNT} tx depth {TX_DEPTH} (host Python): "
         f"{time.perf_counter() - t0:.1f} s")
-    rows.append(phase_trace_kernel(dev, ex))
+    rows.append(phase_trace_kernel(dev, ex, latency_ns))
     prover, raw, tx_launches = phase_tx_full(dev, ex)
     phase_tx_profile(dev, ex, prover)
     phase_tx_plain(dev, ex, raw)
