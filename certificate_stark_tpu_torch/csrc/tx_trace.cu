@@ -3,9 +3,9 @@
 //
 // Replaces certificate_stark_tpu/models/trace_device.py `build_trace_device`
 // (:36-119 and the column lanes of `_jit_window`, :215-322: lax.scan lanes
-// in XLA). The fp6 and point arithmetic is native/air_eval.c's (`f6mul`
-// :85, `f6mulb3` :123, `ec_double` :134, `ec_add_mixed` :163, `ec_add`
-// :196, `f6inv` :620) with f63.cuh's word-level Montgomery arithmetic. The
+// in XLA). The point formulas and the fp6 inverse by exponentiation are
+// native/air_eval.c's (`ec_double` :134, `ec_add_mixed` :163, `ec_add`
+// :196, `f6inv` :620), on f63.cuh's word-level Montgomery arithmetic. The
 // plain version is models/trace_device.py `build_trace_plain`.
 //
 // Bound on the H100: one transaction is a few chains of dependent
@@ -32,10 +32,13 @@
 //                and on lanes 16..23 the h-limb accumulator 38..41 and the
 //                range lanes 56/57, 92/93, one column a lane;
 //     warps 3-4  the EC lane, one warp a point: s.G on cols 0..18, h.P on
-//                cols 19..37; a point's double-and-add runs on lane 0 of
-//                its warp, with no divergence between points and an SM
-//                sub-partition each. At row 1023 the two warps meet through
-//                shared memory for the final addition and fp6 inverse;
+//                cols 19..37, each on an SM sub-partition of its own. A
+//                point's fp6 arithmetic is spread over its warp: one
+//                multiply on 6 lanes as 6 dot products of 6 unreduced
+//                products, one reduction each, and up to 5 multiplies of a
+//                point formula at once (see "fp6 arithmetic spread over a
+//                warp"). At row 1023 the two warps meet at a barrier for
+//                the final addition and the fp6 inverse;
 // - stores by row tiles: each lane puts its columns' values for 32 rows in
 //   shared memory, then its warp writes each column's 32 rows with
 //   consecutive threads on consecutive rows (one 256-byte store a column;
@@ -60,194 +63,275 @@ __device__ __forceinline__ u64 msub(u64 a, u64 b) {
 __device__ __forceinline__ u64 mdbl(u64 a) { return f63_add(a, a); }
 __device__ __forceinline__ u64 bit_m(u64 b) { return b ? ONE_M : 0; }
 
-// ---- fp2 / fp6 tower (ops/ecc.py, reference ecc.rs:424-548) --------------
-__device__ __forceinline__ void f2mul(const u64* a, const u64* b, u64* c) {
-    u64 u = f63_mmul(a[0], b[0]);
-    u64 v = f63_mmul(a[1], b[1]);
-    u64 w = f63_mmul(msub(a[0], a[1]), msub(b[1], b[0]));
-    u64 c0 = f63_add(u, mdbl(v));
-    c[0] = c0;
-    c[1] = f63_add(f63_add(v, c0), w);
-}
+// ---- fp6 arithmetic spread over a warp (ops/ecc.py f6_mul) ----------------
+// fp2 = fp[u]/(u^2 - 2u - 2), fp6 = fp2[v]/(v^3 + v + 1); an fp6 value is
+// (a0 + a1 u) + (a2 + a3 u) v + (a4 + a5 u) v^2, six coordinates on the
+// basis e_i = u^(i & 1) v^(i >> 1). A product a * b is sum_i a_i (b e_i):
+// coordinate k of it is the dot product of a with column k of the matrix
+// whose row i is b e_i. So a multiply takes two steps, each on one lane a
+// row or a coordinate: 6 lanes build the rows of b's matrix (b e_i from b
+// by the linear maps x u and x v, additions only), then 6 lanes each sum
+// 6 unreduced 128-bit products a_i w[i][k] (< 6 p^2 < 2^128) and reduce
+// once. The multiplies of one step of a point formula that do not depend on
+// each other run together, up to 5 (30 lanes). Values live in shared
+// memory between the steps; every lane of the warp runs the same code.
+// tests/test_torch_trace_lanes.py models the split in Python ints.
 
-__device__ void f6mul(const u64* a, const u64* b, u64* c) {
-    u64 aa[2], bb[2], cc[2], ab[2], ac[2], bc[2], x[2], y[2];
-    f2mul(a, b, aa);
-    f2mul(a + 2, b + 2, bb);
-    f2mul(a + 4, b + 4, cc);
-    x[0] = f63_add(a[0], a[2]); x[1] = f63_add(a[1], a[3]);
-    y[0] = f63_add(b[0], b[2]); y[1] = f63_add(b[1], b[3]);
-    f2mul(x, y, ab);
-    x[0] = f63_add(a[0], a[4]); x[1] = f63_add(a[1], a[5]);
-    y[0] = f63_add(b[0], b[4]); y[1] = f63_add(b[1], b[5]);
-    f2mul(x, y, ac);
-    x[0] = f63_add(a[2], a[4]); x[1] = f63_add(a[3], a[5]);
-    y[0] = f63_add(b[2], b[4]); y[1] = f63_add(b[3], b[5]);
-    f2mul(x, y, bc);
-    for (int j = 0; j < 2; j++) {
-        u64 tmp = f63_add(f63_add(aa[j], bb[j]), cc[j]);
-        c[j] = msub(tmp, bc[j]);
-        c[2 + j] = msub(msub(ab[j], bc[j]), aa[j]);
-        c[4 + j] = f63_add(msub(msub(ac[j], tmp), cc[j]), mdbl(bb[j]));
+#define NV 32               // fp6 slots of a point warp
+#define NW 9                // multiplication matrices of a point warp
+// matrices: the curve constant b3's (sparse, see prods); the fixed point's
+// x, y and x + y; D0..D4 for one step's multiplies
+enum { W_B3, W_QX, W_QY, W_QXY, D0, D1, D2, D3, D4 };
+// fixed slots: the running point, the fixed point, b3, and h.P at the end;
+// then the temporaries of one formula, reused by the next
+enum { X, Y, Z, QX, QY, B3S, HX, HY, HZ, S9, S10, S11, S12, S13, S14, S15 };
+
+struct EcShared {
+    u64 v[NV][6];           // fp6 values by slot
+    u64 w[NW][6][6];        // w[m][i][k] = coordinate k of b e_i
+};
+
+// Up to 6 slot or matrix numbers of a step, 5 bits each.
+__host__ __device__ constexpr u32 pk(int a, int b = 0, int c = 0, int d = 0,
+                                     int e = 0, int f = 0) {
+    return a | b << 5 | c << 10 | d << 15 | e << 20 | (u32)f << 25;
+}
+__device__ __forceinline__ int fld(u32 x, int j) { return x >> (5 * j) & 31; }
+
+// x u on each fp2 coordinate pair: (x0, x1) -> (2 x1, x0 + 2 x1).
+__device__ __forceinline__ void mul_u(u64 x[6]) {
+#pragma unroll
+    for (int q = 0; q < 3; q++) {
+        const u64 d = mdbl(x[2 * q + 1]);
+        x[2 * q + 1] = f63_add(x[2 * q], d);
+        x[2 * q] = d;
     }
 }
 
-__device__ __forceinline__ void f6add(const u64* a, const u64* b, u64* c) {
-    for (int i = 0; i < 6; i++) c[i] = f63_add(a[i], b[i]);
-}
-__device__ __forceinline__ void f6sub(const u64* a, const u64* b, u64* c) {
-    for (int i = 0; i < 6; i++) c[i] = msub(a[i], b[i]);
-}
-__device__ __forceinline__ void f6dbl(u64* a) {
-    for (int i = 0; i < 6; i++) a[i] = mdbl(a[i]);
-}
-
-// b3 * a in fp6 by the sparsity of the curve constant: a base-subfield
-// scalar (coordinates 1..5 zero), an fp2 scalar (2..5 zero; three fp2
-// multiplies) or a full fp6 element. Safe when c aliases a.
-__device__ void f6mulb3(const u64* a, const u64* b3, u64* c) {
-    if (!(b3[2] | b3[3] | b3[4] | b3[5])) {
-        if (!b3[1]) {
-            for (int i = 0; i < 6; i++) c[i] = f63_mmul(a[i], b3[0]);
-            return;
-        }
-        for (int i = 0; i < 3; i++) f2mul(a + 2 * i, b3, c + 2 * i);
-        return;
-    }
-    u64 t[6];
-    f6mul(a, b3, t);
-    for (int i = 0; i < 6; i++) c[i] = t[i];
+// x v: (X0, X1, X2) -> (-X2, X0 - X2, X1) on fp2 coordinates.
+__device__ __forceinline__ void mul_v(u64 x[6]) {
+    const u64 x0 = x[0], x1 = x[1], x2 = x[2], x3 = x[3];
+    x[0] = msub(0, x[4]);
+    x[1] = msub(0, x[5]);
+    x[2] = msub(x0, x[4]);
+    x[3] = msub(x1, x[5]);
+    x[4] = x2;
+    x[5] = x3;
 }
 
-// a^(p^6 - 2), the fp6 inverse; exponent words little-endian.
-__device__ void f6inv(const u64* a, u64* out) {
-    const u64 e[6] = {0x88ffffffffffffffULL, 0xfb61c00000000001ULL,
-                      0x55c2038000000000ULL, 0x1074daebf0000000ULL,
-                      0x01af28ce25900000ULL, 0x001262d2ca6f6400ULL};
-    u64 r[6] = {ONE_M, 0, 0, 0, 0, 0}, base[6], t[6];
-    for (int i = 0; i < 6; i++) base[i] = a[i];
-    for (int w = 0; w < 6; w++) {
-        u64 bits = e[w];
-        for (int b = 0; b < 64; b++) {
-            if (bits & 1) {
-                f6mul(r, base, t);
-                for (int i = 0; i < 6; i++) r[i] = t[i];
-            }
-            bits >>= 1;
-            f6mul(base, base, t);
-            for (int i = 0; i < 6; i++) base[i] = t[i];
-        }
+// Step 1 of nw multiplies: lane 6j + i writes row i of the matrix of slot
+// fld(srcs, j) into matrix fld(dsts, j).
+__device__ __forceinline__ void wrows(EcShared& e, int lane, int nw, u32 srcs,
+                                      u32 dsts) {
+    if (lane < 6 * nw) {
+        const int j = lane / 6, i = lane % 6;
+        const u64* b = e.v[fld(srcs, j)];
+        u64 x[6];
+#pragma unroll
+        for (int c = 0; c < 6; c++) x[c] = b[c];
+        if (i >= 2) mul_v(x);
+        if (i >= 4) mul_v(x);
+        if (i & 1) mul_u(x);
+        u64* row = e.w[fld(dsts, j)][i];
+#pragma unroll
+        for (int c = 0; c < 6; c++) row[c] = x[c];
     }
-    for (int i = 0; i < 6; i++) out[i] = r[i];
+    __syncwarp();
+}
+
+// Step 2 of nm multiplies: lanes 6f + k write coordinate k of slot
+// fld(ds, f) = slot fld(as, f) times the value of matrix fld(ws, f). A
+// multiply by b3 (bit f of b3mask) keeps its sparsity: b3 e_i lies in e_i's
+// fp2 pair for an fp2 b3 (form 1), on e_i itself for a base-subfield b3
+// (form 0), so coordinate k sums 2 products or 1, not 6. No step writes a
+// slot it reads.
+__device__ __forceinline__ void prods(EcShared& e, int lane, int nm, u32 as,
+                                      u32 ws, u32 ds, u32 b3mask,
+                                      int b3form) {
+    for (int o = lane; o < 6 * nm; o += 32) {
+        const int f = o / 6, k = o % 6;
+        const int form = b3mask >> f & 1 ? b3form : 2;
+        const int lo = form == 2 ? 0 : form == 1 ? k & ~1 : k;
+        const int hi = form == 2 ? 6 : form == 1 ? (k & ~1) + 2 : k + 1;
+        const u64* a = e.v[fld(as, f)];
+        u64(*w)[6] = e.w[fld(ws, f)];
+        u32 c[4] = {0, 0, 0, 0};
+        for (int i = lo; i < hi; i++) f63_mac(c, a[i], w[i][k]);
+        e.v[fld(ds, f)][k] = f63_redc_wide(c);
+    }
+    __syncwarp();
 }
 
 // ---- point ops on projective [X||Y||Z] (ops/ecc.py compute_*) ------------
-__device__ void ec_double(const u64* pt, const u64* b3, u64* o) {
-    const u64 *x = pt, *y = pt + 6, *z = pt + 12;
-    u64 t0[6], t1[6], t2[6], t3[6], x3[6], y3[6], z3[6], tm[6];
-    f6mul(x, x, t0);
-    f6mul(y, y, t1);
-    f6mul(z, z, t2);
-    f6mul(x, y, t3); f6dbl(t3);
-    f6mul(x, z, z3); f6dbl(z3);
-    f6mulb3(t2, b3, y3);
-    f6add(z3, y3, y3);
-    f6sub(t1, y3, x3);
-    f6add(t1, y3, y3);
-    f6mul(x3, y3, tm); for (int i = 0; i < 6; i++) y3[i] = tm[i];
-    f6mul(t3, x3, tm); for (int i = 0; i < 6; i++) x3[i] = tm[i];
-    f6mulb3(z3, b3, z3);
-    f6sub(t0, t2, t3);
-    f6add(t3, z3, t3);
-    for (int i = 0; i < 6; i++) tm[i] = mdbl(t0[i]);
-    f6add(tm, t0, t0);
-    f6add(t0, t2, t0);
-    f6mul(t0, t3, tm); for (int i = 0; i < 6; i++) t0[i] = tm[i];
-    f6add(y3, t0, y3);
-    f6mul(y, z, t2); f6dbl(t2);
-    f6mul(t2, t3, t0);
-    f6sub(x3, t0, x3);
-    f6mul(t2, t1, z3); f6dbl(z3); f6dbl(z3);
-    for (int i = 0; i < 6; i++) {
-        o[i] = x3[i]; o[6 + i] = y3[i]; o[12 + i] = z3[i];
+// The formulas of native/air_eval.c `ec_double` (:134), `ec_add_mixed`
+// (:163) and `ec_add` (:196), their multiplies grouped by dependence into
+// three steps; lanes 0..5 do the additions between steps, coordinate k on
+// lane k. The point is slots X, Y, Z; the result goes back there.
+
+__device__ __forceinline__ void ec_double(EcShared& e, int lane,
+                                         int b3form) {
+    enum { T0 = S9, T1, T2, T3, Z3, Y3, ZB, S, X3, T0N, T3N, Y3N, X3N, T0A,
+           T0B, Z3N };
+    u64(*v)[6] = e.v;
+    const int k = lane;
+    // x^2, y^2, z^2, x y, x z
+    wrows(e, lane, 3, pk(X, Y, Z), pk(D0, D1, D2));
+    prods(e, lane, 5, pk(X, Y, Z, X, X), pk(D0, D1, D2, D1, D2),
+          pk(T0, T1, T2, T3, Z3), 0, b3form);
+    if (lane < 6) {
+        v[T3][k] = mdbl(v[T3][k]);
+        v[Z3][k] = mdbl(v[Z3][k]);
     }
+    __syncwarp();
+    // b3 z^2, b3 2xz, y z
+    prods(e, lane, 3, pk(T2, Z3, Y), pk(W_B3, W_B3, D2), pk(Y3, ZB, S), 3,
+          b3form);
+    if (lane < 6) {
+        const u64 t0 = v[T0][k], t1 = v[T1][k], t2 = v[T2][k];
+        const u64 y3 = f63_add(v[Z3][k], v[Y3][k]);
+        v[X3][k] = msub(t1, y3);
+        v[Y3][k] = f63_add(t1, y3);
+        v[T3N][k] = f63_add(msub(t0, t2), v[ZB][k]);
+        v[T0N][k] = f63_add(f63_add(mdbl(t0), t0), t2);
+        v[S][k] = mdbl(v[S][k]);
+    }
+    __syncwarp();
+    wrows(e, lane, 3, pk(X3, T3N, T1), pk(D0, D1, D2));
+    prods(e, lane, 5, pk(Y3, T3, T0N, S, S), pk(D0, D0, D1, D1, D2),
+          pk(Y3N, X3N, T0A, T0B, Z3N), 0, b3form);
+    if (lane < 6) {
+        v[X][k] = msub(v[X3N][k], v[T0B][k]);
+        v[Y][k] = f63_add(v[Y3N][k], v[T0A][k]);
+        v[Z][k] = mdbl(mdbl(v[Z3N][k]));
+    }
+    __syncwarp();
 }
 
-__device__ void ec_add_mixed(const u64* pt1, const u64* pt2, const u64* b3,
-                             u64* o) {
-    const u64 *x1 = pt1, *y1 = pt1 + 6, *z1 = pt1 + 12;
-    const u64 *x2 = pt2, *y2 = pt2 + 6;
-    u64 t0[6], t1[6], t2[6], t3[6], t4[6], t5[6], x3[6], y3[6], z3[6];
-    u64 a[6], b[6];
-    f6mul(x1, x2, t0);
-    f6mul(y1, y2, t1);
-    f6add(x2, y2, a); f6add(x1, y1, b);
-    f6mul(a, b, t3);
-    f6add(t0, t1, a);
-    f6sub(t3, a, t3);
-    f6mul(x2, z1, t4); f6add(t4, x1, t4);
-    f6mul(y2, z1, t5); f6add(t5, y1, t5);
-    f6mulb3(z1, b3, x3);
-    f6add(x3, t4, z3);
-    f6sub(t1, z3, x3);
-    f6add(t1, z3, z3);
-    f6mul(x3, z3, y3);
-    for (int i = 0; i < 6; i++) t1[i] = f63_add(mdbl(t0[i]), t0[i]);
-    f6mulb3(t4, b3, t4);
-    f6add(t1, z1, t1);
-    f6sub(t0, z1, t2);
-    f6add(t4, t2, t4);
-    f6mul(t1, t4, t0);
-    f6add(y3, t0, y3);
-    f6mul(t5, t4, t0);
-    f6mul(t3, x3, a);
-    f6sub(a, t0, x3);
-    f6mul(t3, t1, t0);
-    f6mul(t5, z3, a);
-    f6add(a, t0, z3);
-    for (int i = 0; i < 6; i++) {
-        o[i] = x3[i]; o[6 + i] = y3[i]; o[12 + i] = z3[i];
+// P + Q with Q = (QX, QY, 1), whose matrices W_QX, W_QY, W_QXY are built
+// once.
+__device__ __forceinline__ void ec_add_mixed(EcShared& e, int lane,
+                                            int b3form) {
+    enum { SXY = S9, T0, T1, T3, T4, X3, Z3, T1N, T2, Y3, T4B, T5, T4N, T0A,
+           T0B, A1, T0C, A2 };
+    u64(*v)[6] = e.v;
+    const int k = lane;
+    if (lane < 6) v[SXY][k] = f63_add(v[X][k], v[Y][k]);
+    __syncwarp();
+    prods(e, lane, 5, pk(X, Y, SXY, Z, Z), pk(W_QX, W_QY, W_QXY, W_QX, W_B3),
+          pk(T0, T1, T3, T4, X3), 1 << 4, b3form);
+    if (lane < 6) {
+        const u64 t0 = v[T0][k], t1 = v[T1][k], z1 = v[Z][k];
+        v[T3][k] = msub(v[T3][k], f63_add(t0, t1));
+        const u64 t4 = f63_add(v[T4][k], v[X][k]);
+        v[T4][k] = t4;
+        const u64 z3 = f63_add(v[X3][k], t4);
+        v[X3][k] = msub(t1, z3);
+        v[Z3][k] = f63_add(t1, z3);
+        v[T1N][k] = f63_add(f63_add(mdbl(t0), t0), z1);
+        v[T2][k] = msub(t0, z1);
     }
+    __syncwarp();
+    wrows(e, lane, 1, pk(Z3), pk(D0));
+    prods(e, lane, 3, pk(X3, T4, Z), pk(D0, W_B3, W_QY), pk(Y3, T4B, T5),
+          1 << 1, b3form);
+    if (lane < 6) {
+        v[T4N][k] = f63_add(v[T4B][k], v[T2][k]);
+        v[T5][k] = f63_add(v[T5][k], v[Y][k]);
+    }
+    __syncwarp();
+    wrows(e, lane, 2, pk(T4N, T3), pk(D1, D2));
+    prods(e, lane, 5, pk(T1N, T5, X3, T1N, T5), pk(D1, D1, D2, D2, D0),
+          pk(T0A, T0B, A1, T0C, A2), 0, b3form);
+    if (lane < 6) {
+        v[Y][k] = f63_add(v[Y3][k], v[T0A][k]);
+        v[X][k] = msub(v[A1][k], v[T0B][k]);
+        v[Z][k] = f63_add(v[A2][k], v[T0C][k]);
+    }
+    __syncwarp();
 }
 
-__device__ void ec_add(const u64* pt1, const u64* pt2, const u64* b3, u64* o) {
-    const u64 *x1 = pt1, *y1 = pt1 + 6, *z1 = pt1 + 12;
-    const u64 *x2 = pt2, *y2 = pt2 + 6, *z2 = pt2 + 12;
-    u64 t0[6], t1[6], t2[6], t3[6], t4[6], t5[6], x3[6], y3[6], z3[6];
-    u64 a[6], b[6];
-    f6mul(x1, x2, t0);
-    f6mul(y1, y2, t1);
-    f6mul(z1, z2, t2);
-    f6add(x1, y1, a); f6add(x2, y2, b);
-    f6mul(a, b, t3);
-    f6add(t0, t1, a); f6sub(t3, a, t3);
-    f6add(x1, z1, a); f6add(x2, z2, b);
-    f6mul(a, b, t4);
-    f6add(t0, t2, a); f6sub(t4, a, t4);
-    f6add(y1, z1, a); f6add(y2, z2, b);
-    f6mul(a, b, t5);
-    f6add(t1, t2, a); f6sub(t5, a, t5);
-    f6mulb3(t2, b3, x3);
-    f6add(x3, t4, z3);
-    f6sub(t1, z3, x3);
-    f6add(t1, z3, z3);
-    f6mul(x3, z3, y3);
-    for (int i = 0; i < 6; i++) t1[i] = f63_add(mdbl(t0[i]), t0[i]);
-    f6mulb3(t4, b3, t4);
-    f6add(t1, t2, t1);
-    f6sub(t0, t2, t2);
-    f6add(t4, t2, t4);
-    f6mul(t1, t4, t0);
-    f6add(y3, t0, y3);
-    f6mul(t5, t4, t0);
-    f6mul(t3, x3, a);
-    f6sub(a, t0, x3);
-    f6mul(t3, t1, t0);
-    f6mul(t5, z3, a);
-    f6add(a, t0, z3);
-    for (int i = 0; i < 6; i++) {
-        o[i] = x3[i]; o[6 + i] = y3[i]; o[12 + i] = z3[i];
+// P + (HX, HY, HZ), the complete addition.
+__device__ __forceinline__ void ec_add(EcShared& e, int lane,
+                                      int b3form) {
+    enum { SXY1 = S9, SXZ1, SYZ1, SXY2, SXZ2, SYZ2, T0, T1, T2, T3, T4, X3B,
+           T4B, T5, Z3, X3, T1N, T4N, Y3, T0A, T0B };
+    enum { A1 = S9, T0C, A2 };      // the sums are dead by the last step
+    u64(*v)[6] = e.v;
+    const int k = lane;
+    if (lane < 6) {
+        v[SXY1][k] = f63_add(v[X][k], v[Y][k]);
+        v[SXZ1][k] = f63_add(v[X][k], v[Z][k]);
+        v[SYZ1][k] = f63_add(v[Y][k], v[Z][k]);
+        v[SXY2][k] = f63_add(v[HX][k], v[HY][k]);
+        v[SXZ2][k] = f63_add(v[HX][k], v[HZ][k]);
+        v[SYZ2][k] = f63_add(v[HY][k], v[HZ][k]);
     }
+    __syncwarp();
+    wrows(e, lane, 5, pk(HX, HY, HZ, SXY2, SXZ2), pk(D0, D1, D2, D3, D4));
+    prods(e, lane, 5, pk(X, Y, Z, SXY1, SXZ1), pk(D0, D1, D2, D3, D4),
+          pk(T0, T1, T2, T3, T4), 0, b3form);
+    if (lane < 6) {
+        const u64 t0 = v[T0][k], t1 = v[T1][k], t2 = v[T2][k];
+        v[T3][k] = msub(v[T3][k], f63_add(t0, t1));
+        v[T4][k] = msub(v[T4][k], f63_add(t0, t2));
+    }
+    __syncwarp();
+    wrows(e, lane, 1, pk(SYZ2), pk(D0));
+    prods(e, lane, 3, pk(T2, T4, SYZ1), pk(W_B3, W_B3, D0), pk(X3B, T4B, T5),
+          3, b3form);
+    if (lane < 6) {
+        const u64 t0 = v[T0][k], t1 = v[T1][k], t2 = v[T2][k];
+        v[T5][k] = msub(v[T5][k], f63_add(t1, t2));
+        const u64 z3 = f63_add(v[X3B][k], v[T4][k]);
+        v[X3][k] = msub(t1, z3);
+        v[Z3][k] = f63_add(t1, z3);
+        v[T1N][k] = f63_add(f63_add(mdbl(t0), t0), t2);
+        v[T4N][k] = f63_add(v[T4B][k], msub(t0, t2));
+    }
+    __syncwarp();
+    wrows(e, lane, 3, pk(Z3, T4N, T3), pk(D0, D1, D2));
+    prods(e, lane, 6, pk(X3, T1N, T5, X3, T1N, T5), pk(D0, D1, D1, D2, D2, D0),
+          pk(Y3, T0A, T0B, A1, T0C, A2), 0, b3form);
+    if (lane < 6) {
+        v[Y][k] = f63_add(v[Y3][k], v[T0A][k]);
+        v[X][k] = msub(v[A1][k], v[T0B][k]);
+        v[Z][k] = f63_add(v[A2][k], v[T0C][k]);
+    }
+    __syncwarp();
+}
+
+// Slot X = X / Z, with 1 / Z = Z^(p^6 - 2) by square-and-multiply
+// (exponent words little-endian); r * base and base^2 share base's matrix.
+__device__ __forceinline__ void ec_affine_x(EcShared& e, int lane) {
+    const u64 ex[6] = {0x88ffffffffffffffULL, 0xfb61c00000000001ULL,
+                       0x55c2038000000000ULL, 0x1074daebf0000000ULL,
+                       0x01af28ce25900000ULL, 0x001262d2ca6f6400ULL};
+    int r = S9, b = S10;            // ping-pong with S15, S12
+    if (lane < 6) {
+        e.v[r][lane] = lane == 0 ? ONE_M : 0;
+        e.v[b][lane] = e.v[Z][lane];
+    }
+    __syncwarp();
+#pragma unroll 1
+    for (int wd = 0; wd < 6; wd++) {
+        u64 bits = ex[wd];
+#pragma unroll 1
+        for (int i = 0; i < 64 && (bits || wd < 5); i++, bits >>= 1) {
+            const int r2 = r ^ 6, b2 = b ^ 6;
+            wrows(e, lane, 1, pk(b), pk(D0));
+            if (bits & 1) {
+                prods(e, lane, 2, pk(b, r), pk(D0, D0), pk(b2, r2), 0, 2);
+                r = r2;
+            } else {
+                prods(e, lane, 1, pk(b), pk(D0), pk(b2), 0, 2);
+            }
+            b = b2;
+        }
+    }
+    wrows(e, lane, 1, pk(r), pk(D0));
+    prods(e, lane, 1, pk(X), pk(D0), pk(S13), 0, 2);
+    if (lane < 6) e.v[X][lane] = e.v[S13][lane];
+    __syncwarp();
 }
 
 // ---- Rescue on a 16-thread group (csrc/rescue_perm.cu's layout) ----------
@@ -310,7 +394,7 @@ struct Shared {
     u64 merkle[2][29][PAD];  // warp 0: cols 0..28; warp 1: cols 29..57
     u64 tail[22][PAD];       // warp 2: cols 42..55, 38..41, 56, 57, 92, 93
     u64 ec[2][19][PAD];      // warps 3 / 4: cols 0..18 / 19..37
-    u64 hp[18];              // h.P after its last double-and-add
+    EcShared pt[2];          // warps 3 / 4: s.G / h.P
     u64 root[7];             // R_UPD digest from row thl (PREV_ROOT)
 };
 
@@ -353,7 +437,8 @@ __device__ void merkle_lane(Shared& sh, int w, int lane, long long t,
                 // take the sibling or keep the digest, lanes 7..13 the
                 // other, lane 14 the bit
                 const u64 bit = __ldg(bits + cyc);
-                const u64 sib = __ldg(inj + cyc * 7 + (l < 7 ? l : l < 14 ? l - 7 : 0));
+                const int i = l < 7 ? l : l < 14 ? l - 7 : 0;
+                const u64 sib = __ldg(inj + cyc * 7 + i);
                 const u64 dig = shfl64(FULL, v, l >= 7 && l < 14 ? l - 7 : l);
                 v = l < 7 ? (bit ? sib : v)
                   : l < 14 ? (bit ? dig : sib) : bit_m(bit);
@@ -416,8 +501,8 @@ __device__ void hash_range_lane(Shared& sh, int lane, long long t,
                     const u64 s = rescue_round(v, pos, row, m, ark, 0xffffu);
                     if (l < 14) v = s;
                 } else if (l >= 7 && l < 14) {
-                    v = sstep < 32 ? __ldg(msg + (t * 4 + sstep / 8) * 7 + l - 7)
-                                   : 0;
+                    const long long at = (t * 4 + sstep / 8) * 7 + l - 7;
+                    v = sstep < 32 ? __ldg(msg + at) : 0;
                 }
             }
         } else if (l < 4) {
@@ -440,64 +525,73 @@ __device__ void hash_range_lane(Shared& sh, int lane, long long t,
     }
 }
 
-// Warps 3-4: one scalar multiplication each, on lane 0, cols 0..18 (s.G)
-// or 19..37 (h.P); rows 512..1023.
-__device__ void ec_lane(Shared& sh, int pt, int lane, long long t,
+// Warps 3-4: one scalar multiplication each, cols 0..18 (s.G, fixed point
+// gen12) or 19..37 (h.P, the public key); rows 512..1023. Row 1023 of s.G
+// is s.G + h.P with its affine x, after the two warps meet at a barrier.
+__device__ void ec_lane(Shared& sh, int pt, int lane,
                         const u64* __restrict__ q12,
                         const u64* __restrict__ bits,
                         const u64* __restrict__ b3g, u64* out_t,
                         long long n) {
     u64 (*tile)[PAD] = sh.ec[pt];
-    const int col0 = 19 * pt;
-    auto col = [col0](int k) { return col0 + k; };
-    u64 p[18], q[12], b3[6], breg = 0;
-    if (lane == 0) {
-        for (int i = 0; i < 18; i++) p[i] = i == 6 ? ONE_M : 0;
-        for (int i = 0; i < 12; i++) q[i] = __ldg(q12 + i);
-        for (int i = 0; i < 6; i++) b3[i] = __ldg(b3g + i);
-        for (int i = 0; i < 19; i++) tile[i][0] = i < 18 ? p[i] : 0;
+    EcShared& e = sh.pt[pt];
+    const int col0 = 19 * pt, k = lane;
+    auto col = [col0](int c) { return col0 + c; };
+    const u64 b3k = __ldg(b3g + (lane < 6 ? lane : 0));
+    // 0: base-subfield b3 (coordinates 1..5 zero), 1: fp2 (2..5 zero), 2
+    const int b3form = __any_sync(FULL, lane >= 2 && lane < 6 && b3k) ? 2
+                       : __any_sync(FULL, lane == 1 && b3k)          ? 1
+                                                                     : 0;
+    if (lane < 6) {
+        e.v[X][k] = 0;
+        e.v[Y][k] = k == 0 ? ONE_M : 0;
+        e.v[Z][k] = 0;
+        e.v[QX][k] = __ldg(q12 + k);
+        e.v[QY][k] = __ldg(q12 + 6 + k);
+        e.v[B3S][k] = b3k;
+        e.v[S9][k] = f63_add(e.v[QX][k], e.v[QY][k]);
+        tile[k][0] = e.v[X][k];
+        tile[6 + k][0] = e.v[Y][k];
+        tile[12 + k][0] = e.v[Z][k];
     }
+    if (lane == 0) tile[18][0] = 0;
+    __syncwarp();
+    wrows(e, lane, 4, pk(B3S, QX, QY, S9), pk(W_B3, W_QX, W_QY, W_QXY));
+    u64 breg = 0;
 #pragma unroll 1
-    for (int r0 = HALF; r0 < CYCLE; r0 += TILE) {
-        if (lane == 0) {
-#pragma unroll 1
-            for (int r = r0 == HALF ? r0 + 1 : r0; r < r0 + TILE; r++) {
-                const int sstep = r - HALF - 1;
-                if (sstep < 510) {
-                    const int real = sstep / 2;
-                    const u64 bit = __ldg(bits + 254 - real);
-                    breg = bit_m(bit);
-                    u64 o[18];
-                    if ((sstep & 1) == 0) {
-                        ec_double(p, b3, o);
-                        for (int i = 0; i < 18; i++) p[i] = o[i];
-                    } else if (bit) {
-                        ec_add_mixed(p, q, b3, o);
-                        for (int i = 0; i < 18; i++) p[i] = o[i];
-                    }
-                } else if (pt == 1) {
-                    for (int i = 0; i < 18; i++) sh.hp[i] = p[i];
-                }
-                if (sstep < 510 || pt == 1)
-                    for (int i = 0; i < 19; i++)
-                        tile[i][r % TILE] = i < 18 ? p[i] : breg;
+    for (int r = HALF + 1; r < CYCLE; r++) {
+        const int sstep = r - HALF - 1;
+        if (sstep < 510) {
+            const int real = sstep / 2;
+            const u64 bit = __ldg(bits + 254 - real);
+            breg = bit_m(bit);
+            if ((sstep & 1) == 0)
+                ec_double(e, lane, b3form);
+            else if (bit)
+                ec_add_mixed(e, lane, b3form);
+        } else {
+            // row 1023: h.P hands its point over; s.G adds it
+            if (pt == 1 && lane < 6) {
+                sh.pt[0].v[HX][k] = e.v[X][k];
+                sh.pt[0].v[HY][k] = e.v[Y][k];
+                sh.pt[0].v[HZ][k] = e.v[Z][k];
             }
-        }
-        if (r0 + TILE == CYCLE) {
-            // row 1023: s.G + h.P, then its affine x
             __syncwarp();
             asm volatile("bar.sync 1, 64;" ::: "memory");
-            if (pt == 0 && lane == 0) {
-                u64 o[18], zinv[6], xn[6];
-                ec_add(p, sh.hp, b3, o);
-                f6inv(o + 12, zinv);
-                f6mul(o, zinv, xn);
-                for (int i = 0; i < 18; i++)
-                    tile[i][TILE - 1] = i < 6 ? xn[i] : o[i];
-                tile[18][TILE - 1] = ONE_M;
+            if (pt == 0) {
+                ec_add(e, lane, b3form);
+                ec_affine_x(e, lane);
+                breg = ONE_M;
             }
         }
-        store_tile(tile, 19, col, out_t, n, r0, lane);
+        if (lane < 6) {
+            tile[k][r % TILE] = e.v[X][k];
+            tile[6 + k][r % TILE] = e.v[Y][k];
+            tile[12 + k][r % TILE] = e.v[Z][k];
+        }
+        if (lane == 0) tile[18][r % TILE] = breg;
+        if (r % TILE == TILE - 1)
+            store_tile(tile, 19, col, out_t, n, r - (TILE - 1), lane);
     }
 }
 
@@ -534,10 +628,9 @@ transaction_trace_kernel(
         hash_range_lane(sh, lane, t, rx, msg, hbits, dbits, gbits, mds, ark,
                         out_t, n);
     else if (w == 3)
-        ec_lane(sh, 0, lane, t, gen12, sbits + t * 256, b3g, out_t, n);
+        ec_lane(sh, 0, lane, gen12, sbits + t * 256, b3g, out_t, n);
     else
-        ec_lane(sh, 1, lane, t, pkey + t * 12, hbits + t * 256, b3g, out_t,
-                n);
+        ec_lane(sh, 1, lane, pkey + t * 12, hbits + t * 256, b3g, out_t, n);
 }
 
 // Inputs in the order of ops/kernels.py TRACE_INPUTS, then the constant

@@ -11,18 +11,27 @@ three seeded random transactions at depth 3 shows it: transaction 1 is
 transaction 0 with only its Merkle inputs changed, transaction 2 with only
 its Schnorr and range inputs changed. The accumulator and range columns are
 held against closed forms in Python ints, and the plain trace of a real
-witness against the JAX package's `build_trace_device`. Tolerance: exact
-equality."""
+witness at depth 15 against the JAX package's host rows.
+
+The kernel's EC lane splits each fp6 multiply over a warp and runs the point
+formulas in steps of multiplies that do not depend on each other: a
+Python-int model of it, slot for slot, is held against ops/ecc.py and the
+JAX package's f6_mul for the three forms of the curve constant b3.
+Tolerance: exact equality."""
 import numpy as np
 import pytest
 import torch
 
-from certificate_stark_tpu.models import trace_device as JTD
+from certificate_stark_tpu.engine.fieldops import NP
+from certificate_stark_tpu.models import transaction as JTX
+from certificate_stark_tpu.ops import ecc as JE
+from certificate_stark_tpu.ops import field as JF
 from certificate_stark_tpu.utils import curve as JCV
-from certificate_stark_tpu.utils import witness as JW
+from certificate_stark_tpu_torch.engine.fieldops import BASE
 from certificate_stark_tpu_torch.engine.options import ProofOptions
 from certificate_stark_tpu_torch.models import trace_device as TD
 from certificate_stark_tpu_torch.models import transaction as TX
+from certificate_stark_tpu_torch.ops import ecc as E
 from certificate_stark_tpu_torch.ops import field as F
 from certificate_stark_tpu_torch.ops import kernels as K
 from certificate_stark_tpu_torch.ops import rescue as R
@@ -146,22 +155,312 @@ def test_range_lanes_closed_form(lanes, bit_col, key, copy):
                                init[92:94, None].expand(2, 512))
 
 
-def test_plain_trace_of_a_witness_equals_jax_build_trace_device():
-    """2 transactions, depth 3, seed 3 (the transaction goldens' statement),
-    fp2 curve in both packages."""
+def test_plain_trace_of_a_witness_at_depth_15_equals_jax_tx_rows():
+    """2 transactions at depth 15 (the main path's depth), seed 5, fp2 curve
+    in both packages, against the JAX package's host rows (`tx_rows`, which
+    its own tests hold equal to `build_trace_device`)."""
     prev = (JCV.CURVE_NAME, CV.CURVE_NAME)
     JCV.set_curve("fp2")
     CV.set_curve("fp2")
     try:
-        ex = TX.TransactionExample(2, ProofOptions(), depth=3, seed=3,
+        ex = TX.TransactionExample(2, ProofOptions(), depth=15, seed=5,
                                    device="cpu")
-        md = JW.build_random(2, 3, 3, with_signatures=True)
-        msgs = [JW.build_tx_message(md.s_old_values[i][:12],
-                                    md.r_old_values[i][:12], md.deltas[i],
-                                    md.s_old_values[i][13])
-                for i in range(2)]
-        exp = np.asarray(JTD.build_trace_device(md, msgs))
+        rows = []
+        for t, msg, sig in zip(ex.md.tx_dicts(), ex.messages,
+                               ex.md.signatures):
+            rows.extend(JTX.tx_rows(t, 15, msg, sig))
+        exp = JF.from_int(np.array(rows, dtype=object).T)
         assert np.array_equal(to_jax_limbs(ex.trace), exp)
     finally:
         JCV.set_curve(prev[0])
         CV.set_curve(prev[1])
+
+
+# ---------------------------------------------------------------------------
+# A Python-int model of the EC lane of csrc/tx_trace.cu: the fp6 multiply
+# split over a warp, and the point formulas as its steps, slot for slot.
+# ---------------------------------------------------------------------------
+R_INV = pow(1 << 64, -1, P)
+ONE_M = (1 << 64) % P
+W_B3, W_QX, W_QY, W_QXY, D0, D1, D2, D3, D4 = range(9)
+X, Y, Z, QX, QY, B3S, HX, HY, HZ = range(9)
+S9, S10, S11, S12, S13, S14, S15 = range(9, 16)
+
+
+def _mul_u(x):
+    """x u on each fp2 pair: (x0, x1) -> (2 x1, x0 + 2 x1)."""
+    out = list(x)
+    for q in range(3):
+        d = 2 * x[2 * q + 1] % P
+        out[2 * q], out[2 * q + 1] = d, (x[2 * q] + d) % P
+    return out
+
+
+def _mul_v(x):
+    """x v: (X0, X1, X2) -> (-X2, X0 - X2, X1) on fp2 coordinates."""
+    return [-x[4] % P, -x[5] % P, (x[0] - x[4]) % P, (x[1] - x[5]) % P,
+            x[2], x[3]]
+
+
+class Warp:
+    """One point warp's shared memory: 32 fp6 slots (Montgomery ints) and 9
+    multiplication matrices, w[m][i][k] = coordinate k of b e_i."""
+
+    def __init__(self):
+        self.v = [[0] * 6 for _ in range(32)]
+        self.w = [[[0] * 6 for _ in range(6)] for _ in range(9)]
+
+    def wrows(self, srcs, dsts):
+        """Step 1: lane 6j + i builds row i = b e_i, e_i = u^(i&1) v^(i>>1),
+        of the matrix of slot srcs[j]."""
+        for lane in range(6 * len(srcs)):
+            j, i = divmod(lane, 6)
+            x = list(self.v[srcs[j]])
+            if i >= 2:
+                x = _mul_v(x)
+            if i >= 4:
+                x = _mul_v(x)
+            if i & 1:
+                x = _mul_u(x)
+            self.w[dsts[j]][i] = x
+
+    def prods(self, as_, ws, ds, b3mask=0, b3form=2):
+        """Step 2: lane 6f + k (lanes 32 on for a sixth multiply) sums the
+        unreduced products a_i w[i][k] over the form's range and reduces
+        once. No step may write a slot it reads."""
+        assert not set(ds) & set(as_)
+        out = {}
+        for o in range(6 * len(as_)):
+            f, k = divmod(o, 6)
+            form = b3form if b3mask >> f & 1 else 2
+            lo, hi = ((0, 6) if form == 2 else
+                      (k & ~1, (k & ~1) + 2) if form == 1 else (k, k + 1))
+            c = sum(self.v[as_[f]][i] * self.w[ws[f]][i][k]
+                    for i in range(lo, hi))
+            assert c < 1 << 128
+            out[ds[f], k] = c * R_INV % P
+        for (s, k), val in out.items():
+            self.v[s][k] = val
+
+    def lanes(self, fn):
+        """Lanes 0..5: coordinate k of an addition step."""
+        for k in range(6):
+            fn(self.v, k)
+
+
+def _add(a, b):
+    return (a + b) % P
+
+
+def _sub(a, b):
+    return (a - b) % P
+
+
+def model_double(e, b3form):
+    T0, T1, T2, T3, Z3, Y3, ZB, S, X3, T0N, T3N, Y3N, X3N, T0A, T0B, Z3N = \
+        range(S9, S9 + 16)
+    e.wrows((X, Y, Z), (D0, D1, D2))
+    e.prods((X, Y, Z, X, X), (D0, D1, D2, D1, D2), (T0, T1, T2, T3, Z3))
+
+    def a1(v, k):
+        v[T3][k] = _add(v[T3][k], v[T3][k])
+        v[Z3][k] = _add(v[Z3][k], v[Z3][k])
+    e.lanes(a1)
+    e.prods((T2, Z3, Y), (W_B3, W_B3, D2), (Y3, ZB, S), 3, b3form)
+
+    def a2(v, k):
+        t0, t1, t2 = v[T0][k], v[T1][k], v[T2][k]
+        y3 = _add(v[Z3][k], v[Y3][k])
+        v[X3][k] = _sub(t1, y3)
+        v[Y3][k] = _add(t1, y3)
+        v[T3N][k] = _add(_sub(t0, t2), v[ZB][k])
+        v[T0N][k] = (3 * t0 + t2) % P
+        v[S][k] = _add(v[S][k], v[S][k])
+    e.lanes(a2)
+    e.wrows((X3, T3N, T1), (D0, D1, D2))
+    e.prods((Y3, T3, T0N, S, S), (D0, D0, D1, D1, D2),
+            (Y3N, X3N, T0A, T0B, Z3N))
+
+    def a3(v, k):
+        v[X][k] = _sub(v[X3N][k], v[T0B][k])
+        v[Y][k] = _add(v[Y3N][k], v[T0A][k])
+        v[Z][k] = 4 * v[Z3N][k] % P
+    e.lanes(a3)
+
+
+def model_add_mixed(e, b3form):
+    SXY, T0, T1, T3, T4, X3, Z3, T1N, T2, Y3, T4B, T5, T4N, T0A, T0B, A1, \
+        T0C, A2 = range(S9, S9 + 18)
+    e.lanes(lambda v, k: v[SXY].__setitem__(k, _add(v[X][k], v[Y][k])))
+    e.prods((X, Y, SXY, Z, Z), (W_QX, W_QY, W_QXY, W_QX, W_B3),
+            (T0, T1, T3, T4, X3), 1 << 4, b3form)
+
+    def a1(v, k):
+        t0, t1, z1 = v[T0][k], v[T1][k], v[Z][k]
+        v[T3][k] = _sub(v[T3][k], _add(t0, t1))
+        t4 = v[T4][k] = _add(v[T4][k], v[X][k])
+        z3 = _add(v[X3][k], t4)
+        v[X3][k] = _sub(t1, z3)
+        v[Z3][k] = _add(t1, z3)
+        v[T1N][k] = (3 * t0 + z1) % P
+        v[T2][k] = _sub(t0, z1)
+    e.lanes(a1)
+    e.wrows((Z3,), (D0,))
+    e.prods((X3, T4, Z), (D0, W_B3, W_QY), (Y3, T4B, T5), 1 << 1, b3form)
+
+    def a2(v, k):
+        v[T4N][k] = _add(v[T4B][k], v[T2][k])
+        v[T5][k] = _add(v[T5][k], v[Y][k])
+    e.lanes(a2)
+    e.wrows((T4N, T3), (D1, D2))
+    e.prods((T1N, T5, X3, T1N, T5), (D1, D1, D2, D2, D0),
+            (T0A, T0B, A1, T0C, A2))
+
+    def a3(v, k):
+        v[Y][k] = _add(v[Y3][k], v[T0A][k])
+        v[X][k] = _sub(v[A1][k], v[T0B][k])
+        v[Z][k] = _add(v[A2][k], v[T0C][k])
+    e.lanes(a3)
+
+
+def model_add(e, b3form):
+    SXY1, SXZ1, SYZ1, SXY2, SXZ2, SYZ2, T0, T1, T2, T3, T4, X3B, T4B, T5, \
+        Z3, X3, T1N, T4N, Y3, T0A, T0B = range(S9, S9 + 21)
+    A1, T0C, A2 = S9, S10, S11
+
+    def a0(v, k):
+        v[SXY1][k] = _add(v[X][k], v[Y][k])
+        v[SXZ1][k] = _add(v[X][k], v[Z][k])
+        v[SYZ1][k] = _add(v[Y][k], v[Z][k])
+        v[SXY2][k] = _add(v[HX][k], v[HY][k])
+        v[SXZ2][k] = _add(v[HX][k], v[HZ][k])
+        v[SYZ2][k] = _add(v[HY][k], v[HZ][k])
+    e.lanes(a0)
+    e.wrows((HX, HY, HZ, SXY2, SXZ2), (D0, D1, D2, D3, D4))
+    e.prods((X, Y, Z, SXY1, SXZ1), (D0, D1, D2, D3, D4), (T0, T1, T2, T3, T4))
+
+    def a1(v, k):
+        t0, t1, t2 = v[T0][k], v[T1][k], v[T2][k]
+        v[T3][k] = _sub(v[T3][k], _add(t0, t1))
+        v[T4][k] = _sub(v[T4][k], _add(t0, t2))
+    e.lanes(a1)
+    e.wrows((SYZ2,), (D0,))
+    e.prods((T2, T4, SYZ1), (W_B3, W_B3, D0), (X3B, T4B, T5), 3, b3form)
+
+    def a2(v, k):
+        t0, t1, t2 = v[T0][k], v[T1][k], v[T2][k]
+        v[T5][k] = _sub(v[T5][k], _add(t1, t2))
+        z3 = _add(v[X3B][k], v[T4][k])
+        v[X3][k] = _sub(t1, z3)
+        v[Z3][k] = _add(t1, z3)
+        v[T1N][k] = (3 * t0 + t2) % P
+        v[T4N][k] = _add(v[T4B][k], _sub(t0, t2))
+    e.lanes(a2)
+    e.wrows((Z3, T4N, T3), (D0, D1, D2))
+    e.prods((X3, T1N, T5, X3, T1N, T5), (D0, D1, D1, D2, D2, D0),
+            (Y3, T0A, T0B, A1, T0C, A2))
+
+    def a3(v, k):
+        v[Y][k] = _add(v[Y3][k], v[T0A][k])
+        v[X][k] = _sub(v[A1][k], v[T0B][k])
+        v[Z][k] = _add(v[A2][k], v[T0C][k])
+    e.lanes(a3)
+
+
+def model_affine_x(e):
+    """X = X / Z, 1 / Z = Z^(p^6 - 2) by square-and-multiply, r * base and
+    base^2 sharing base's matrix, the slots ping-ponging."""
+    r, b = S9, S10
+    e.v[r] = [ONE_M, 0, 0, 0, 0, 0]
+    e.v[b] = list(e.v[Z])
+    exp = P ** 6 - 2
+    while exp:
+        e.wrows((b,), (D0,))
+        if exp & 1:
+            e.prods((b, r), (D0, D0), (b ^ 6, r ^ 6))
+            r ^= 6
+        else:
+            e.prods((b,), (D0,), (b ^ 6,))
+        b ^= 6
+        exp >>= 1
+    e.wrows((r,), (D0,))
+    e.prods((X,), (D0,), (S13,))
+    e.v[X] = list(e.v[S13])
+
+
+def _b3_form(b3):
+    return 2 if any(b3[2:]) else 1 if b3[1] else 0
+
+
+def _warp(rng, b3, q):
+    """A warp with a random point in X, Y, Z, the fixed point q (Montgomery
+    ints) and b3's matrices built as the kernel builds them."""
+    e = Warp()
+    mont = [int(v) for v in rng.integers(0, P, size=18, dtype=np.int64)]
+    e.v[X], e.v[Y], e.v[Z] = mont[0:6], mont[6:12], mont[12:18]
+    e.v[QX], e.v[QY] = q[0:6], q[6:12]
+    e.v[B3S] = [v * (1 << 64) % P for v in b3]
+    e.v[S9] = [_add(a, b) for a, b in zip(q[0:6], q[6:12])]
+    e.wrows((B3S, QX, QY, S9), (W_B3, W_QX, W_QY, W_QXY))
+    return e
+
+
+def _mont_tensor(vals):
+    return torch.tensor(vals, dtype=torch.int64)[:, None]
+
+
+def _b3_cases():
+    rng = np.random.default_rng(99)
+    full = [int(v) for v in rng.integers(0, P, size=6, dtype=np.uint64)]
+    return {"subfield": [3 * v % P for v in CV._load("subfield")["b_limbs"]],
+            "fp2": [3 * v % P for v in CV._load("fp2")["b_limbs"]],
+            "full_fp6": full}
+
+
+@pytest.mark.parametrize("b3_name", ["subfield", "fp2", "full_fp6"])
+def test_split_fp6_multiply_model_matches_f6_mul(b3_name):
+    """The split multiply: a general product, and b3 times a value with
+    b3's sparse form, against ops/ecc.py and the JAX package's f6_mul."""
+    b3 = _b3_cases()[b3_name]
+    rng = np.random.default_rng(7)
+    for _ in range(8):
+        q = [int(v) for v in rng.integers(0, P, size=12, dtype=np.int64)]
+        e = _warp(rng, b3, q)
+        e.wrows((Y,), (D0,))
+        e.prods((X, Z), (D0, W_B3), (S11, S12), 2, _b3_form(b3))
+        x, y, z = (_mont_tensor(e_) for e_ in (e.v[X], e.v[Y], e.v[Z]))
+        b3t = F.from_ints(b3, "cpu")[:, None]
+        for got, a, b in ((e.v[S11], x, y), (e.v[S12], z, b3t)):
+            exp = E.f6_mul(BASE, a, b)
+            jexp = JE.f6_mul(NP, to_jax_limbs(a), to_jax_limbs(b))
+            assert got == exp[:, 0].tolist()
+            assert np.array_equal(to_jax_limbs(exp), np.asarray(jexp))
+        assert e.v[S12] == E._mul_b3(BASE, b3, z)[:, 0].tolist()
+
+
+@pytest.mark.parametrize("b3_name", ["subfield", "fp2", "full_fp6"])
+def test_point_formula_model_matches_ecc(b3_name):
+    """The kernel's steps of a doubling, a mixed addition, the complete
+    addition and the affine x, slot for slot, against ops/ecc.py."""
+    b3 = _b3_cases()[b3_name]
+    form = _b3_form(b3)
+    rng = np.random.default_rng(8)
+    q = [int(v) for v in rng.integers(0, P, size=12, dtype=np.int64)]
+    e = _warp(rng, b3, q)
+    pt = _mont_tensor(e.v[X] + e.v[Y] + e.v[Z])
+    model_double(e, form)
+    assert e.v[X] + e.v[Y] + e.v[Z] == \
+        E.compute_double(BASE, pt, b3)[:, 0].tolist()
+    pt = _mont_tensor(e.v[X] + e.v[Y] + e.v[Z])
+    model_add_mixed(e, form)
+    assert e.v[X] + e.v[Y] + e.v[Z] == \
+        E.compute_add_mixed(BASE, pt, _mont_tensor(q), b3)[:, 0].tolist()
+    h = [int(v) for v in rng.integers(0, P, size=18, dtype=np.int64)]
+    e.v[HX], e.v[HY], e.v[HZ] = h[0:6], h[6:12], h[12:18]
+    pt = _mont_tensor(e.v[X] + e.v[Y] + e.v[Z])
+    model_add(e, form)
+    fin = E.compute_add(BASE, pt, _mont_tensor(h), b3)
+    assert e.v[X] + e.v[Y] + e.v[Z] == fin[:, 0].tolist()
+    model_affine_x(e)
+    x = E.f6_mul(BASE, fin[0:6], E.f6_inv(BASE, fin[12:18]))
+    assert e.v[X] == x[:, 0].tolist()
