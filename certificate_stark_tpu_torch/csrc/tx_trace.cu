@@ -17,28 +17,29 @@
 // rate of those chains. What the design does:
 // - one block per transaction, its 1024-row window split into the column
 //   lanes of the JAX package, which never write each other's columns, so
-//   they run side by side on their own warps:
-//     warps 0-1  Merkle lane, cols 0..57 rows 0..511: the clusters S_INIT 0,
-//                S_UPD 15, R_INIT 29, R_UPD 44 on four 16-thread groups
-//                (rescue_perm.cu's layout: a thread holds one lane and its
-//                MDS row, an MDS layer gathers the group with shuffles; the
-//                sibling injection is a per-lane select); the bit registers
-//                14 and 43 on lane 14 of groups 0 and 2. Then the columns
-//                that are constant or copies: PREV_ROOT 58..64 (init rows,
-//                then the R_UPD digest from row thl), 65..91, and 92/93 on
-//                rows 0..511;
-//     warp 2     hash lane, cols 42..55 rows 512..1023 (5 sponge cycles of
-//                7 rounds on one 16-thread group, the message injected),
-//                and on lanes 16..23 the h-limb accumulator 38..41 and the
-//                range lanes 56/57, 92/93, one column a lane;
-//     warps 3-4  the EC lane, one warp a point: s.G on cols 0..18, h.P on
-//                cols 19..37, each on an SM sub-partition of its own. A
-//                point's fp6 arithmetic is spread over its warp: one
-//                multiply on 6 lanes as 6 dot products of 6 unreduced
-//                products, one reduction each, and up to 5 multiplies of a
-//                point formula at once (see "fp6 arithmetic spread over a
-//                warp"). At row 1023 the two warps meet at a barrier for
-//                the final addition and the fp6 inverse;
+//   they run side by side on four warps, one an SM sub-partition:
+//     warps 0-1  the EC lane, one warp a point: s.G on cols 0..18, h.P on
+//                cols 19..37, rows 512..1023. A point's fp6 arithmetic is
+//                spread over its warp: one multiply on 6 lanes as 6 dot
+//                products of 6 unreduced products, one reduction each, and
+//                up to 5 multiplies of a point formula at once (see "fp6
+//                arithmetic spread over a warp"). At row 1023 the two warps
+//                meet at a barrier for the final addition and the fp6
+//                inverse;
+//     warps 2-3  the Merkle lane, cols 0..57 rows 0..511: the clusters
+//                S_INIT 0, S_UPD 15 (warp 2), R_INIT 29, R_UPD 44 (warp 3)
+//                on 16-thread groups (rescue_perm.cu's layout: a thread
+//                holds one lane and its MDS row, an MDS layer gathers the
+//                group with shuffles; the sibling injection is a per-lane
+//                select); the bit registers 14 and 43 on lane 14 of the
+//                S_INIT and R_INIT groups. Then warp 2 runs the hash lane,
+//                cols 42..55 rows 512..1023 (5 sponge cycles of 7 rounds on
+//                one 16-thread group, the message injected), with the
+//                h-limb accumulator 38..41 and the range lanes 56/57, 92/93
+//                on lanes 16..23, one column a lane; warp 3 writes the
+//                columns that are constant or copies: PREV_ROOT 58..64
+//                (init rows, then the R_UPD digest from row thl), 65..91,
+//                and 92/93 on rows 0..511;
 // - stores by row tiles: each lane puts its columns' values for 32 rows in
 //   shared memory, then its warp writes each column's 32 rows with
 //   consecutive threads on consecutive rows (one 256-byte store a column;
@@ -53,7 +54,8 @@
 #define TILE 32             // rows a warp buffers before it stores them
 #define PAD 33              // row stride of a shared tile, in u64
 #define GROUP 16            // threads of one Rescue state
-#define THREADS 160         // 5 warps: Merkle, Merkle, hash/range, s.G, h.P
+#define THREADS 128         // 4 warps, one an SM sub-partition: s.G, h.P,
+                            // Merkle + hash/range, Merkle + copies
 #define ONE_M 4287426845256712189ULL  // 2^64 mod p: Montgomery one
 #define FULL 0xffffffffu
 
@@ -139,24 +141,50 @@ __device__ __forceinline__ void wrows(EcShared& e, int lane, int nw, u32 srcs,
     __syncwarp();
 }
 
+// (c3 c2 c1 c0) += (d3 d2 d1 d0); the caller keeps the sum below 2^128.
+__device__ __forceinline__ void add128(u32 c[4], const u32 d[4]) {
+    const u64 lo = join32(c[0], c[1]) + join32(d[0], d[1]);
+    const u64 hi = join32(c[2], c[3]) + join32(d[2], d[3]) +
+                   (lo < join32(d[0], d[1]));
+    c[0] = lo32(lo); c[1] = hi32(lo); c[2] = lo32(hi); c[3] = hi32(hi);
+}
+
 // Step 2 of nm multiplies: lanes 6f + k write coordinate k of slot
-// fld(ds, f) = slot fld(as, f) times the value of matrix fld(ws, f). A
-// multiply by b3 (bit f of b3mask) keeps its sparsity: b3 e_i lies in e_i's
-// fp2 pair for an fp2 b3 (form 1), on e_i itself for a base-subfield b3
-// (form 0), so coordinate k sums 2 products or 1, not 6. No step writes a
-// slot it reads.
+// fld(ds, f) = slot fld(as, f) times the value of matrix fld(ws, f): 6
+// products summed unreduced in two carry chains of 3, then added and
+// reduced once. A multiply by b3 (bit f of b3mask) keeps its sparsity: b3
+// e_i lies in e_i's fp2 pair for an fp2 b3 (form 1), on e_i itself for a
+// base-subfield b3 (form 0), so coordinate k sums 2 products or 1, not 6.
+// No step writes a slot it reads.
 __device__ __forceinline__ void prods(EcShared& e, int lane, int nm, u32 as,
                                       u32 ws, u32 ds, u32 b3mask,
                                       int b3form) {
     for (int o = lane; o < 6 * nm; o += 32) {
         const int f = o / 6, k = o % 6;
         const int form = b3mask >> f & 1 ? b3form : 2;
-        const int lo = form == 2 ? 0 : form == 1 ? k & ~1 : k;
-        const int hi = form == 2 ? 6 : form == 1 ? (k & ~1) + 2 : k + 1;
         const u64* a = e.v[fld(as, f)];
         u64(*w)[6] = e.w[fld(ws, f)];
-        u32 c[4] = {0, 0, 0, 0};
-        for (int i = lo; i < hi; i++) f63_mac(c, a[i], w[i][k]);
+        u32 c[4];
+        if (form == 2) {
+            u64 av[6], wv[6];
+#pragma unroll
+            for (int i = 0; i < 6; i++) {
+                av[i] = a[i];
+                wv[i] = w[i][k];
+            }
+            u32 d[4];
+            f63_mul_wide(av[0], wv[0], c[0], c[1], c[2], c[3]);
+            f63_mul_wide(av[1], wv[1], d[0], d[1], d[2], d[3]);
+            f63_mac(c, av[2], wv[2]);
+            f63_mac(d, av[3], wv[3]);
+            f63_mac(c, av[4], wv[4]);
+            f63_mac(d, av[5], wv[5]);
+            add128(c, d);
+        } else {
+            const int i = form == 1 ? k & ~1 : k;
+            f63_mul_wide(a[i], w[i][k], c[0], c[1], c[2], c[3]);
+            if (form == 1) f63_mac(c, a[i + 1], w[i + 1][k]);
+        }
         e.v[fld(ds, f)][k] = f63_redc_wide(c);
     }
     __syncwarp();
@@ -391,10 +419,10 @@ __device__ __forceinline__ void store_const(u64* out_t, long long n, int col,
 }
 
 struct Shared {
-    u64 merkle[2][29][PAD];  // warp 0: cols 0..28; warp 1: cols 29..57
+    u64 merkle[2][29][PAD];  // warp 2: cols 0..28; warp 3: cols 29..57
     u64 tail[22][PAD];       // warp 2: cols 42..55, 38..41, 56, 57, 92, 93
-    u64 ec[2][19][PAD];      // warps 3 / 4: cols 0..18 / 19..37
-    EcShared pt[2];          // warps 3 / 4: s.G / h.P
+    u64 ec[2][19][PAD];      // warps 0 / 1: cols 0..18 / 19..37
+    EcShared pt[2];          // warps 0 / 1: s.G / h.P
     u64 root[7];             // R_UPD digest from row thl (PREV_ROOT)
 };
 
@@ -402,7 +430,8 @@ __device__ __forceinline__ int tail_col(int c) {
     return c < 14 ? 42 + c : c < 18 ? 24 + c : c < 20 ? 38 + c : 72 + c;
 }
 
-// Merkle lane (warps 0-1), then the constant and copy columns.
+// Merkle lane, the S pair of clusters on w = 0 and the R pair on w = 1;
+// then w = 1 writes the constant and copy columns.
 __device__ void merkle_lane(Shared& sh, int w, int lane, long long t,
                             const u64* __restrict__ init,
                             const u64* __restrict__ sibs,
@@ -450,26 +479,25 @@ __device__ void merkle_lane(Shared& sh, int w, int lane, long long t,
             store_tile(tile, 29, [w](int k) { return 29 * w + k; }, out_t, n,
                        r - (TILE - 1), lane);
     }
-    if (w == 1 && g == 3 && l < 7) sh.root[l] = v;
+    if (w == 0) return;
+    if (g == 3 && l < 7) sh.root[l] = v;
     __syncwarp();
-    if (w == 1) {
-        for (int i = 0; i < 7; i++)
-            store_const(out_t, n, 58 + i, 0, CYCLE, thl,
-                        __ldg(init + t * WIDTH + 58 + i), sh.root[i], lane);
-    } else {
-        for (int k = 65; k < 92; k++) {
-            const u64 x = __ldg(init + t * WIDTH + k);
-            store_const(out_t, n, k, 0, CYCLE, CYCLE, x, x, lane);
-        }
-        for (int k = 92; k < 94; k++) {
-            const u64 x = __ldg(init + t * WIDTH + k);
-            store_const(out_t, n, k, 0, HALF, HALF, x, x, lane);
-        }
+    for (int i = 0; i < 7; i++)
+        store_const(out_t, n, 58 + i, 0, CYCLE, thl,
+                    __ldg(init + t * WIDTH + 58 + i), sh.root[i], lane);
+    for (int k = 65; k < 92; k++) {
+        const u64 x = __ldg(init + t * WIDTH + k);
+        store_const(out_t, n, k, 0, CYCLE, CYCLE, x, x, lane);
+    }
+    for (int k = 92; k < 94; k++) {
+        const u64 x = __ldg(init + t * WIDTH + k);
+        store_const(out_t, n, k, 0, HALF, HALF, x, x, lane);
     }
 }
 
-// Warp 2: the hash lane on lanes 0..15, the h-limb accumulator (38..41) and
-// the range lanes (56 bit, 57 acc; 92 bit, 93 acc) on lanes 16..23.
+// Warp 2, after its Merkle lane: the hash lane on lanes 0..15, the h-limb
+// accumulator (38..41) and the range lanes (56 bit, 57 acc; 92 bit, 93 acc)
+// on lanes 16..23.
 __device__ void hash_range_lane(Shared& sh, int lane, long long t,
                                 const u64* __restrict__ rx,
                                 const u64* __restrict__ msg,
@@ -525,7 +553,7 @@ __device__ void hash_range_lane(Shared& sh, int lane, long long t,
     }
 }
 
-// Warps 3-4: one scalar multiplication each, cols 0..18 (s.G, fixed point
+// Warps 0-1: one scalar multiplication each, cols 0..18 (s.G, fixed point
 // gen12) or 19..37 (h.P, the public key); rows 512..1023. Row 1023 of s.G
 // is s.G + h.P with its affine x, after the two warps meet at a barrier.
 __device__ void ec_lane(Shared& sh, int pt, int lane,
@@ -621,16 +649,17 @@ transaction_trace_kernel(
     const long long n = T * CYCLE;
     u64* out_t = out + t * CYCLE;
     const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
-    if (w < 2)
-        merkle_lane(sh, w, lane, t, init, sibs, path_bits, mds, ark, depth,
-                    out_t, n);
-    else if (w == 2)
-        hash_range_lane(sh, lane, t, rx, msg, hbits, dbits, gbits, mds, ark,
-                        out_t, n);
-    else if (w == 3)
+    if (w == 0) {
         ec_lane(sh, 0, lane, gen12, sbits + t * 256, b3g, out_t, n);
-    else
+    } else if (w == 1) {
         ec_lane(sh, 1, lane, pkey + t * 12, hbits + t * 256, b3g, out_t, n);
+    } else {
+        merkle_lane(sh, w - 2, lane, t, init, sibs, path_bits, mds, ark,
+                    depth, out_t, n);
+        if (w == 2)
+            hash_range_lane(sh, lane, t, rx, msg, hbits, dbits, gbits, mds,
+                            ark, out_t, n);
+    }
 }
 
 // Inputs in the order of ops/kernels.py TRACE_INPUTS, then the constant

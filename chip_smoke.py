@@ -84,6 +84,7 @@ MERGE_PAIRS = sorted({1 << e for e in range(20)} | {3, 1000})
 # one plain call each (~20 s on the card)
 TRACE_CASES = ((1, 1, "full_fp6"), (33, 15, "subfield"), (33, 15, "fp2"),
                (33, 15, "full_fp6"))
+TRACE_SIZES = ((1, 1), (1, 15), (128, 1), (128, 15))
 TRACE_BITS = ("path_bits", "sbits", "hbits", "dbits", "gbits")
 # dependent Montgomery multiplies of one Rescue round: x^3 (a squaring, a
 # multiply), the inverse s-box chain, and one reduction for each MDS layer
@@ -699,7 +700,8 @@ def _random_trace_inputs(T, depth, b3, seed, dev):
 
 
 def _trace_check(inputs, consts, depth, what):
-    """The kernel against its plain version, bit for bit: max abs err."""
+    """The kernel against its plain version, bit for bit, and both timed:
+    (plain ms, kernel ms over 10 launches)."""
     from certificate_stark_tpu_torch.models import trace_device as TD
     from certificate_stark_tpu_torch.ops import kernels as K
     got = K.transaction_trace(inputs, consts, depth)
@@ -716,8 +718,10 @@ def _trace_check(inputs, consts, depth, what):
             f"{bad[:8].tolist()}")
     check(err == 0, f"transaction_trace differs from its plain version "
           f"({what})")
-    log(f"transaction_trace == plain ({what}); plain {plain:.1f} ms")
-    return plain
+    ms = cuda_ms(lambda: K.transaction_trace(inputs, consts, depth), 10)
+    log(f"transaction_trace == plain ({what}): {ms:.4f} ms, plain "
+        f"{plain:.1f} ms")
+    return plain, ms
 
 
 def phase_trace_kernel(dev, ex, latency_ns):
@@ -732,12 +736,13 @@ def phase_trace_kernel(dev, ex, latency_ns):
     from certificate_stark_tpu_torch.ops import kernels as K
     from certificate_stark_tpu_torch.utils import curve as CV
     forms = _b3_forms()
-    err = 0
+    err, ms_by_case = 0, {}
     for T, depth, form in TRACE_CASES:
         inputs, consts = _random_trace_inputs(T, depth, forms[form],
                                               1000 + T, dev)
-        _trace_check(inputs, consts, depth,
-                     f"random, {T} tx depth {depth}, b3 {form}")
+        ms_by_case[f"{T}tx_d{depth}_{form}"] = _trace_check(
+            inputs, consts, depth,
+            f"random, {T} tx depth {depth}, b3 {form}")[1]
     if ex is None:
         b3, depth = CV.B3_LIMBS, TX_DEPTH
         inputs, consts = _random_trace_inputs(TX_COUNT, depth, b3, 7, dev)
@@ -746,9 +751,9 @@ def phase_trace_kernel(dev, ex, latency_ns):
         b3, depth = CV.B3_LIMBS, ex.depth
         inputs, consts = TD.pack_witness(ex.md, ex.messages, dev)
         what = f"witness, {TX_COUNT} tx depth {depth}"
-    plain = _trace_check(inputs, consts, depth, what)
+    plain, _ = _trace_check(inputs, consts, depth, what)
     got = K.transaction_trace(inputs, consts, depth)
-    ms = cuda_ms(lambda: K.transaction_trace(inputs, consts, depth), 10)
+    ms = cuda_ms(lambda: K.transaction_trace(inputs, consts, depth), 20)
     nbytes = sum(t.numel() * 8 for t in inputs.values()) + got.numel() * 8
     muls = _trace_muls(inputs, depth, b3)
     bnd, by = bound_ms(nbytes, muls)
@@ -765,7 +770,23 @@ def phase_trace_kernel(dev, ex, latency_ns):
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
                 bound_by=by, library_ms=None, shape=list(got.shape),
                 critical_path_ms=chain_ms, chain=chain, chain_lane=lane,
-                latency_ns=latency_ns, **use)
+                latency_ns=latency_ns, ms_by_case=ms_by_case, **use)
+
+
+def phase_trace_sizes(dev):
+    """The trace kernel's time on seeded random inputs at 1 and 128
+    transactions, depth 1 and 15: the tree depth lengthens only the Merkle
+    lane, the transaction count only fills more SMs."""
+    from certificate_stark_tpu_torch.ops import kernels as K
+    from certificate_stark_tpu_torch.utils import curve as CV
+    out = {}
+    for T, depth in TRACE_SIZES:
+        inputs, consts = _random_trace_inputs(T, depth, CV.B3_LIMBS, 7, dev)
+        out[f"{T}tx_d{depth}"] = cuda_ms(
+            lambda: K.transaction_trace(inputs, consts, depth), 20)
+    log("transaction_trace ms by size: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in out.items()))
+    return out
 
 
 def _trace_sha(trace):
@@ -954,6 +975,7 @@ def main():
         # the trace kernel's checks and measurements alone, for comparing
         # checkouts
         row = phase_trace_kernel(dev, None, latency_ns)
+        row["ms_by_size"] = phase_trace_sizes(dev)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps(dict(trace=row)))
         print(card_line())

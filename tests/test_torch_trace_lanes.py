@@ -226,8 +226,9 @@ class Warp:
 
     def prods(self, as_, ws, ds, b3mask=0, b3form=2):
         """Step 2: lane 6f + k (lanes 32 on for a sixth multiply) sums the
-        unreduced products a_i w[i][k] over the form's range and reduces
-        once. No step may write a slot it reads."""
+        unreduced products a_i w[i][k] over the form's range (all 6 in two
+        chains, even and odd i) and reduces once. No step may write a slot
+        it reads."""
         assert not set(ds) & set(as_)
         out = {}
         for o in range(6 * len(as_)):
@@ -235,8 +236,9 @@ class Warp:
             form = b3form if b3mask >> f & 1 else 2
             lo, hi = ((0, 6) if form == 2 else
                       (k & ~1, (k & ~1) + 2) if form == 1 else (k, k + 1))
-            c = sum(self.v[as_[f]][i] * self.w[ws[f]][i][k]
-                    for i in range(lo, hi))
+            chains = [sum(self.v[as_[f]][i] * self.w[ws[f]][i][k]
+                          for i in range(lo + j, hi, 2)) for j in (0, 1)]
+            c = sum(chains)
             assert c < 1 << 128
             out[ds[f], k] = c * R_INV % P
         for (s, k), val in out.items():
