@@ -3,10 +3,10 @@
 //
 // Replaces certificate_stark_tpu/models/trace_device.py `build_trace_device`
 // (:36-119 and the column lanes of `_jit_window`, :215-322: lax.scan lanes
-// in XLA). The point formulas and the fp6 inverse by exponentiation are
-// native/air_eval.c's (`ec_double` :134, `ec_add_mixed` :163, `ec_add`
-// :196, `f6inv` :620), on f63.cuh's word-level Montgomery arithmetic. The
-// plain version is models/trace_device.py `build_trace_plain`.
+// in XLA). The point formulas are native/air_eval.c's (`ec_double` :134,
+// `ec_add_mixed` :163, `ec_add` :196), the fp6 inverse ops/ecc.py's
+// `f6_inv`, on f63.cuh's word-level Montgomery arithmetic. The plain
+// version is models/trace_device.py `build_trace_plain`.
 //
 // Bound on the H100: one transaction is a few chains of dependent
 // Montgomery multiplies (the Rescue rounds of four Merkle clusters, 16 tree
@@ -86,7 +86,7 @@ __device__ __forceinline__ u64 bit_m(u64 b) { return b ? ONE_M : 0; }
 enum { W_B3, W_QX, W_QY, W_QXY, D0, D1, D2, D3, D4 };
 // fixed slots: the running point, the fixed point, b3, and h.P at the end;
 // then the temporaries of one formula, reused by the next
-enum { X, Y, Z, QX, QY, B3S, HX, HY, HZ, S9, S10, S11, S12, S13, S14, S15 };
+enum { X, Y, Z, QX, QY, B3S, HX, HY, HZ, S9, S10 };
 
 struct EcShared {
     u64 v[NV][6];           // fp6 values by slot
@@ -121,11 +121,11 @@ __device__ __forceinline__ void mul_v(u64 x[6]) {
     x[5] = x3;
 }
 
-// The two steps of a multiply are functions of their own, not inlined: a
-// kernel with every call inlined is 64% larger (10,920 SASS instructions
-// against 6,732) and ran 1.49 ms at 128 transactions against 1.09 ms this
-// way, though 0.92 against 1.04 ms at one (instruction fetch shared by 128
-// SMs).
+// The two steps of a multiply are functions of their own, not inlined: with
+// every call inlined the kernel had 10,920 SASS instructions, not 6,732,
+// and took 1.49 ms for 128 transactions on an H100, not 1.09 ms, though
+// 0.92 ms, not 1.04, for one; the larger code likely misses in the
+// instruction caches once every SM runs it.
 
 // Step 1 of nw multiplies: lane 6j + i writes row i of the matrix of slot
 // fld(srcs, j) into matrix fld(dsts, j).
@@ -334,37 +334,81 @@ __device__ __forceinline__ void ec_add(EcShared& e, int lane,
     __syncwarp();
 }
 
-// Slot X = X / Z, with 1 / Z = Z^(p^6 - 2) by square-and-multiply
-// (exponent words little-endian); r * base and base^2 share base's matrix.
+// ---- the affine x of s.G + h.P: X / Z on one lane ------------------------
+// fp2 multiply (u^2 = 2u + 2): c0 = u + 2v, c1 = v + c0 + w with u = a0 b0,
+// v = a1 b1, w = (a0 - a1)(b1 - b0).
+__device__ __forceinline__ void f2mul(const u64* a, const u64* b, u64* c) {
+    const u64 u = f63_mmul(a[0], b[0]), v = f63_mmul(a[1], b[1]);
+    const u64 w = f63_mmul(msub(a[0], a[1]), msub(b[1], b[0]));
+    c[0] = f63_add(u, mdbl(v));
+    c[1] = f63_add(f63_add(v, c[0]), w);
+}
+
+// x^(p - 2), the base-field inverse (0 maps to 0).
+__device__ u64 f63_inv(u64 x) {
+    const u64 e = F63_P - 2;
+    u64 r = ONE_M;
+#pragma unroll 1
+    for (int i = 62; i >= 0; i--) {
+        r = f63_msqr(r);
+        if (e >> i & 1) r = f63_mmul(r, x);
+    }
+    return r;
+}
+
+// 1 / a in fp6 by the formula of ops/ecc.py `f6_inv` (the reference's
+// invert_fp6, which the JAX package's trace uses): fp2 products down to
+// the inverse of one fp2 norm, then of one base-field value. Some 60
+// Montgomery multiplies and one inverse of 119, against 373 fp6 squarings
+// for a^(p^6 - 2); 0 maps to 0 either way.
+__device__ void f6inv(const u64* a, u64* out) {
+    const u64 *c0 = a, *c1 = a + 2, *c2 = a + 4;
+    u64 c0s[2], c1s[2], c2s[2], t[2], x[2], y[2];
+    f2mul(c0, c0, c0s);
+    f2mul(c1, c1, c1s);
+    f2mul(c2, c2, c2s);
+    for (int j = 0; j < 2; j++) x[j] = f63_add(c0s[j], c1s[j]);
+    f2mul(c0, x, t);
+    f2mul(c1, c1s, y);
+    for (int j = 0; j < 2; j++) t[j] = msub(t[j], y[j]);
+    for (int j = 0; j < 2; j++) x[j] = f63_add(c0[j], msub(c2[j], c1[j]));
+    f2mul(x, c2s, y);
+    for (int j = 0; j < 2; j++) t[j] = f63_add(t[j], y[j]);
+    for (int j = 0; j < 2; j++) x[j] = f63_add(mdbl(c0[j]), c0[j]);
+    f2mul(x, c1, y);
+    for (int j = 0; j < 2; j++) x[j] = msub(mdbl(c0s[j]), y[j]);
+    f2mul(x, c2, y);
+    for (int j = 0; j < 2; j++) t[j] = msub(t[j], y[j]);
+    // t^-1 = (t0 + 2 t1, -t1) / (t0^2 + 2 t0 t1 - 2 t1^2)
+    const u64 t01 = f63_mmul(t[0], t[1]);
+    const u64 norm = msub(f63_add(f63_mmul(t[0], t[0]), mdbl(t01)),
+                          mdbl(f63_mmul(t[1], t[1])));
+    const u64 ni = f63_inv(norm);
+    u64 ti[2] = {f63_mmul(f63_add(t[0], mdbl(t[1])), ni),
+                 msub(0, f63_mmul(t[1], ni))};
+    for (int j = 0; j < 2; j++)
+        x[j] = f63_add(f63_add(c0s[j], c1s[j]), c2s[j]);
+    u64 z[2];
+    for (int j = 0; j < 2; j++) z[j] = msub(mdbl(c0[j]), c1[j]);
+    f2mul(z, c2, y);
+    for (int j = 0; j < 2; j++) x[j] = msub(x[j], y[j]);
+    f2mul(x, ti, out);
+    f2mul(c0, c1, x);
+    for (int j = 0; j < 2; j++) x[j] = f63_add(x[j], c2s[j]);
+    f2mul(x, ti, y);
+    for (int j = 0; j < 2; j++) out[2 + j] = msub(0, y[j]);
+    f2mul(c0, c2, y);
+    for (int j = 0; j < 2; j++) x[j] = f63_add(msub(c1s[j], y[j]), c2s[j]);
+    f2mul(x, ti, out + 4);
+}
+
+// Slot X = X / Z: the inverse on lane 0, the product split as any other.
 __device__ __forceinline__ void ec_affine_x(EcShared& e, int lane) {
-    const u64 ex[6] = {0x88ffffffffffffffULL, 0xfb61c00000000001ULL,
-                       0x55c2038000000000ULL, 0x1074daebf0000000ULL,
-                       0x01af28ce25900000ULL, 0x001262d2ca6f6400ULL};
-    int r = S9, b = S10;            // ping-pong with S15, S12
-    if (lane < 6) {
-        e.v[r][lane] = lane == 0 ? ONE_M : 0;
-        e.v[b][lane] = e.v[Z][lane];
-    }
+    if (lane == 0) f6inv(e.v[Z], e.v[S9]);
     __syncwarp();
-#pragma unroll 1
-    for (int wd = 0; wd < 6; wd++) {
-        u64 bits = ex[wd];
-#pragma unroll 1
-        for (int i = 0; i < 64 && (bits || wd < 5); i++, bits >>= 1) {
-            const int r2 = r ^ 6, b2 = b ^ 6;
-            wrows(e, lane, 1, pk(b), pk(D0));
-            if (bits & 1) {
-                prods(e, lane, 2, pk(b, r), pk(D0, D0), pk(b2, r2), 0, 2);
-                r = r2;
-            } else {
-                prods(e, lane, 1, pk(b), pk(D0), pk(b2), 0, 2);
-            }
-            b = b2;
-        }
-    }
-    wrows(e, lane, 1, pk(r), pk(D0));
-    prods(e, lane, 1, pk(X), pk(D0), pk(S13), 0, 2);
-    if (lane < 6) e.v[X][lane] = e.v[S13][lane];
+    wrows(e, lane, 1, pk(S9), pk(D0));
+    prods(e, lane, 1, pk(X), pk(D0), pk(S10), 0, 2);
+    if (lane < 6) e.v[X][lane] = e.v[S10][lane];
     __syncwarp();
 }
 

@@ -4,7 +4,7 @@ Counterpart of certificate_stark_tpu/models/trace_device.py
 `build_trace_device`: the witness is packed on the host into per-transaction
 input tensors (`pack_witness`) and the trace kernel (csrc/tx_trace.cu,
 ops/kernels.py `transaction_trace`) builds the Montgomery trace
-[94, 1024*T], one thread per transaction.
+[94, 1024*T], one thread block per transaction.
 
 `build_trace_plain` is that kernel's plain PyTorch version, a port of
 certificate_stark_tpu/models/trace_np.py `build_trace_np`: one step loop

@@ -68,7 +68,10 @@ REDC_OPS = 10
 # 6, 9 or 18 Montgomery multiplies (base-subfield, fp2 or full fp6 b3).
 MULS_PER_F6MUL = 18 * MULS_PER_MMUL
 MULS_PER_ROUND = MULS_PER_PERM // 7
-F6_INV_EXP = 4719772409484279809 ** 6 - 2     # csrc/tx_trace.cu f6inv
+# csrc/tx_trace.cu f6inv: 14 fp2 multiplies, 3 for the norm, the base-field
+# inverse x^(p - 2) (63 squarings, a multiply a set bit), 2 for 1 / t
+P_INV_MMULS = 63 + bin(4719772409484279809 - 2).count("1")
+F6_INV_MMULS = 14 * 3 + 3 + P_INV_MMULS + 2
 BENCH_OPTS = dict(num_queries=42, blowup=8, grinding_bits=0, hash_fn="blake3",
                   extension_degree=1, fri_folding=4, fri_max_remainder=256)
 TX_COUNT, TX_DEPTH = 128, 15
@@ -567,7 +570,7 @@ def _trace_muls(inputs, depth, b3):
     per_add = 11 * MULS_PER_F6MUL + 2 * b3m
     fixed = (rounds * MULS_PER_ROUND + 2 * 255 * per_double
              + 12 * MULS_PER_F6MUL + 2 * b3m
-             + (384 + bin(F6_INV_EXP).count("1") + 1) * MULS_PER_F6MUL)
+             + F6_INV_MMULS * MULS_PER_MMUL + MULS_PER_F6MUL)
     return T * fixed + bits * per_add
 
 
@@ -577,19 +580,13 @@ def _trace_chain(inputs, depth):
     side, for these inputs: (chain, lane). A Rescue round is RESCUE_DEPTH
     deep; a doubling, a mixed addition and the final addition each add 3 to
     a point's depth (their products read sums of the point's coordinates, a
-    product of products at most twice more); the fp6 inverse's
-    square-and-multiply adds one a squaring and one a multiply that the
-    running product waits for; the affine x one more."""
+    product of products at most twice more); the fp6 inverse adds 3 to its
+    fp2 norm, the base-field inverse's chain and 2 more; the affine x 1."""
     merkle = 7 * (depth + 1) * RESCUE_DEPTH
     hashl = 7 * 5 * RESCUE_DEPTH
     pop = torch.maximum(inputs["sbits"][:, :255].sum(1),
                         inputs["hbits"][:, :255].sum(1))
-    r = base = 0
-    for i in range(F6_INV_EXP.bit_length()):
-        if F6_INV_EXP >> i & 1:
-            r = max(r, base) + 1
-        base += 1
-    ec = 3 * 255 + 3 * int(pop.max()) + 3 + r + 1
+    ec = 3 * 255 + 3 * int(pop.max()) + 3 + (3 + P_INV_MMULS + 2) + 1
     return max((merkle, "Merkle"), (hashl, "hash"), (ec, "EC"))
 
 
