@@ -1,17 +1,21 @@
-"""FRI commit-phase folding on the device (base field).
+"""FRI commit-phase folding on the device.
 
-Counterpart of certificate_stark_tpu/engine/fri.py `fold2_dyn`/`FriLayer`
-and the fold-by-4 layer of `Prover._make_fri_kernel`. One radix-2 fold:
+Counterpart of certificate_stark_tpu/engine/fri.py `fold2_ext`/`FriLayer`
+and the fold-by-4 layer of `Prover._make_fri_kernel`. The evaluations are
+extension values [d, n] (d = 1 for base-field proofs) and the folding
+scalar xi an extension element. One radix-2 fold:
 
     E'(x^2) = (E(x) + E(-x))/2 + xi * (E(x) - E(-x)) / (2x)
 
 On a domain o*<w> the -x partner of index j is j + n/2, and 1/x comes from
-an inverse-powers table. Layer leaves group the `fold` positions that fold
-together: leaf j holds the values at j, j + n/fold, j + 2n/fold, ...
+an inverse-powers table. A fold by 4 is two radix-2 folds, with xi and
+xi^2. Layer leaves group the `fold` positions that fold together,
+element-major: leaf j holds the d coordinates of the value at j, then of
+the value at j + n/fold, j + 2n/fold, ...
 """
 from __future__ import annotations
 
-from ..ops import field as F
+from ..ops import extfield as XF, field as F
 
 
 def inv_xs_table(offset: int, gen: int, count: int, device):
@@ -21,27 +25,35 @@ def inv_xs_table(offset: int, gen: int, count: int, device):
     return F.mul(F.powers(w_inv, count, device), F.const(o_inv, device))
 
 
-def fold2(evals, xi: int, offset: int, gen: int):
-    """One radix-2 fold of [n] evaluations with a standard-form scalar xi
-    -> [n/2] over the domain o^2*<w^2>."""
-    n = evals.shape[-1]
+def fold2(evals, xi, offset: int, gen: int):
+    """One radix-2 fold of [d, n] evaluations with the extension scalar xi
+    [d] (Montgomery) -> [d, n/2] over the domain o^2*<w^2>."""
+    d, n = evals.shape
     half = n // 2
-    e0, e1 = evals[..., :half], evals[..., half:]
+    e0, e1 = evals[:, :half], evals[:, half:]
     inv2 = F.const(pow(2, F.P - 2, F.P), evals.device)
     s = F.mul(F.add(e0, e1), inv2)
-    d = F.mul(F.sub(e0, e1), inv2)
-    d = F.mul(d, inv_xs_table(offset, gen, half, evals.device))
-    d = F.mul(d, F.const(xi, evals.device))
-    return F.add(s, d)
+    t = F.mul(F.sub(e0, e1), F.mul(inv_xs_table(offset, gen, half,
+                                                evals.device), inv2))
+    return F.add(s, XF.ext_mul(t, xi[:, None], d))
 
 
-def fold(evals, xi: int, offset: int, gen: int, folding: int):
-    """Fold by 2, or by 4 as two radix-2 folds with xi and xi^2."""
+def fold(evals, xi, offset: int, gen: int, folding: int):
+    """Fold [d, n] by 2, or by 4 as two radix-2 folds with xi and xi^2."""
+    d = evals.shape[0]
     out = fold2(evals, xi, offset, gen)
     if folding == 4:
-        out = fold2(out, xi * xi % F.P, offset * offset % F.P,
-                    gen * gen % F.P)
+        xi2 = XF.ext_mul(xi[:, None], xi[:, None], d)[:, 0]
+        out = fold2(out, xi2, offset * offset % F.P, gen * gen % F.P)
     return out
+
+
+def leaf_rows(evals, folding: int):
+    """[d, n] -> the layer's leaf rows [folding * d, n / folding],
+    element-major."""
+    d, n = evals.shape
+    return evals.reshape(d, folding, n // folding).permute(1, 0, 2) \
+        .reshape(folding * d, n // folding)
 
 
 class FriLayer:
@@ -50,4 +62,4 @@ class FriLayer:
         self.n = n
         self.offset = offset
         self.gen = gen
-        self.group = group  # [folding, n/folding] evaluations (device)
+        self.group = group  # leaf rows [folding * d, n/folding] (device)

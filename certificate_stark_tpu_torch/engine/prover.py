@@ -5,7 +5,14 @@ Counterpart of certificate_stark_tpu/engine/prover.py `Prover.prove`
 evaluation and composition -> composition commitment -> OOD frame -> DEEP
 composition -> FRI layers -> grinding -> query openings. The device arrays
 are int64 tensors of Montgomery values; the host runs the public coin between
-phases and assembles the proof. Base field and Rescue commitments only.
+phases and assembles the proof.
+
+The trace and the constraint evaluations are base-field values. From the
+composition on, the data lives in the extension of degree d
+(opts.extension_degree; d = 1 is the base field): composition
+coefficients, z, DEEP and FRI values are [d, ...] tensors with the
+extension coordinate leading (ops/extfield.py), and every value that leaves
+the device is flattened element-major, as the JAX package's `_flat` does.
 
 The whole LDE domain is one batch in every phase: an H100's 80 GB holds the
 domains this port proves, so the JAX package's memory workarounds (packed
@@ -16,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import field as F, ntt as NTT
+from ..ops import extfield as XF, field as F, ntt as NTT
 from ..utils import device as DV, poly_host as PH
 from . import fri as FRI
 from . import merkle as M
@@ -33,11 +40,9 @@ class Prover:
 
     def __init__(self, air, device=None, hasher=None):
         opts = air.options
-        if opts.extension_degree != 1:
-            raise NotImplementedError("the port proves over the base field "
-                                      "only (extension_degree=1)")
         self.device = dev = DV.resolve(device)
         self.air, self.opts = air, opts
+        self.d = opts.extension_degree
         self.n, self.w, self.b = air.trace_length, air.trace_width, opts.blowup
         n, b = self.n, self.b
         self.bn = bn = b * n
@@ -89,17 +94,19 @@ class Prover:
                                         self.hasher.hash_columns(rows))
 
     def phase_composition(self, lde, t_alpha, t_beta, b_alpha, b_beta):
-        """Constraint quotients and boundary terms combined into H(x), split
-        into k column polynomials -> (h_coeffs [k, n], h_lde [k, bn])."""
-        n, k, dev = self.n, self.k, self.device
+        """Constraint quotients and boundary terms combined into H(x) with
+        the extension coefficients [d, C], split into k column polynomials
+        -> (h_coeffs [d, k, n], h_lde [d, k, bn])."""
+        n, k, d, dev = self.n, self.k, self.d, self.device
         nxt = torch.roll(lde, -self.b, dims=-1)
         evals = self.air.evaluate_transition(BASE, lde, nxt, self.periodic)
-        # sum_c evals_c * (alpha_c + beta_c * x^adj_c), then / zerofier
-        comp = F.mul_sum(evals, t_alpha[:, None], dim=0)
+        # sum_c evals_c * (alpha_c + beta_c * x^adj_c), then / zerofier;
+        # base evaluations times extension coefficients, coordinatewise
+        comp = F.mul_sum(evals[None], t_alpha[:, :, None], dim=1)  # [d, bn]
         for adj in sorted(set(self.t_adjs)):
             sel = torch.tensor([i for i, a in enumerate(self.t_adjs)
                                 if a == adj], device=dev)
-            part = F.mul_sum(evals[sel], t_beta[sel, None], dim=0)
+            part = F.mul_sum(evals[sel][None], t_beta[:, sel, None], dim=1)
             comp = F.add(comp, F.mul(part, self.xpow[adj]))
         comp = F.mul(comp, self.zt_inv)
         # boundary terms, one divisor group at a time
@@ -107,54 +114,73 @@ class Prover:
         for grp in self.b_tables:
             ci = torch.tensor([index[id(a)] for a in grp.assertions],
                               device=dev)
-            num = F.sub(lde[grp.columns], grp.b_evals)          # [g, bn]
-            term = F.add(F.mul_sum(num, b_alpha[ci, None], dim=0),
-                         F.mul(F.mul_sum(num, b_beta[ci, None], dim=0),
+            num = F.sub(lde[grp.columns], grp.b_evals)[None]    # [1, g, bn]
+            term = F.add(F.mul_sum(num, b_alpha[:, ci, None], dim=1),
+                         F.mul(F.mul_sum(num, b_beta[:, ci, None], dim=1),
                                self.xpow[grp.adj]))
             comp = F.add(comp, F.mul(term, grp.inv_z))
         # coefficients over the coset, then H_i(x) with H = sum x^i H_i(x^k)
         o_inv = pow(self.offset, F.P - 2, F.P)
         coeffs = NTT.coset_scale(NTT.intt(comp), o_inv)
-        h_coeffs = coeffs[:k * n].reshape(n, k).T.contiguous()  # [k, n]
+        h_coeffs = coeffs[:, :k * n].reshape(d, n, k).transpose(1, 2) \
+            .contiguous()                                       # [d, k, n]
         return h_coeffs, self._lde_from_coeffs(h_coeffs)
 
-    def phase_ood(self, trace_coeffs, h_coeffs, z: int):
-        """Trace polynomials at z and z*g, composition columns at z^k."""
-        dev, n = self.device, self.n
-        zg = z * self.g_trace % F.P
-        zk = pow(z, self.k, F.P)
-        ood_z = F.mul_sum(trace_coeffs, F.powers(z, n, dev), dim=-1)
-        ood_zg = F.mul_sum(trace_coeffs, F.powers(zg, n, dev), dim=-1)
-        ood_h = F.mul_sum(h_coeffs, F.powers(zk, n, dev), dim=-1)
-        return ood_z, ood_zg, ood_h
+    def ood_points(self, z):
+        """z, z*g and z^k of the extension point z [d] -> [d, 3]."""
+        zg = F.mul(z, F.const(self.g_trace, z.device))
+        zk = z[:, None]
+        for _ in range(self.k.bit_length() - 1):
+            zk = XF.ext_mul(zk, zk, self.d)
+        return torch.stack([z, zg, zk[:, 0]], dim=1)
+
+    def phase_ood(self, trace_coeffs, h_coeffs, z):
+        """Trace polynomials at z and z*g, composition columns at z^k
+        -> ood_z [d, w], ood_zg [d, w], ood_h [d, k]."""
+        tbl = XF.ext_powers_dyn(self.ood_points(z), self.n, self.d)
+        ood = F.mul_sum(trace_coeffs, tbl[:, :2, None, :], dim=-1)
+        ood_h = XF.ext_mul_sum(h_coeffs, tbl[:, 2, None, :], self.d, dim=-1)
+        return ood[:, 0], ood[:, 1], ood_h
 
     def phase_deep(self, lde, h_lde, ood_z, ood_zg, ood_h, g_z, g_zg, g_h,
-                   z: int):
-        """DEEP composition over the LDE domain -> [bn]."""
-        dev = self.device
-        pts = [z, z * self.g_trace % F.P, pow(z, self.k, F.P)]
-        inv_den = F.batch_inv(torch.stack(
-            [F.sub(self.xs, F.const(p, dev)) for p in pts]))    # [3, bn]
-        terms = [
-            F.mul_sum(F.sub(lde, ood_z[:, None]), g_z[:, None], dim=0),
-            F.mul_sum(F.sub(lde, ood_zg[:, None]), g_zg[:, None], dim=0),
-            F.mul_sum(F.sub(h_lde, ood_h[:, None]), g_h[:, None], dim=0),
-        ]
-        deep = F.mul(terms[0], inv_den[0])
-        for t, inv in zip(terms[1:], inv_den[1:]):
-            deep = F.add(deep, F.mul(t, inv))
-        return deep
+                   z):
+        """DEEP composition over the LDE domain -> [d, bn]:
+        sum_j g_j (f_j(x) - f_j(p)) / (x - p) over the trace columns at
+        p = z and z*g and the composition columns at z^k."""
+        d, bn = self.d, self.bn
+        # x - p for the three points, [d, 3, bn], and their inverses from
+        # one inversion of their product
+        pts = self.ood_points(z)
+        den = torch.cat([F.sub(self.xs[None], pts[0][:, None])[None],
+                         F.neg(pts[1:])[:, :, None].expand(d - 1, 3, bn)])
+        xz, xzg, xzk = den[:, 0], den[:, 1], den[:, 2]
+        others = XF.ext_mul(torch.stack([xzg, xz, xz], dim=1),
+                            torch.stack([xzk, xzk, xzg], dim=1), d)
+        inv_all = XF.ext_inv_vec(XF.ext_mul(others[:, 2], xzk, d), d)
+        inv_den = XF.ext_mul(others, inv_all[:, None], d)
+        # numerators: sum_j g_j f_j(x) - sum_j g_j f_j(p)
+        c = torch.stack([XF.ext_mul_sum(g_z, ood_z, d, dim=1),
+                         XF.ext_mul_sum(g_zg, ood_zg, d, dim=1),
+                         XF.ext_mul_sum(g_h, ood_h, d, dim=1)], dim=1)
+        num = torch.stack([
+            F.mul_sum(lde[None], g_z[:, :, None], dim=1),
+            F.mul_sum(lde[None], g_zg[:, :, None], dim=1),
+            XF.ext_mul_sum(h_lde, g_h[:, :, None], d, dim=1)], dim=1)
+        q = XF.ext_mul(F.sub(num, c[:, :, None]), inv_den, d)   # [d, 3, bn]
+        return F.add(F.add(q[:, 0], q[:, 1]), q[:, 2])
 
     # ------------------------------------------------------------------
     def _draw(self, coin, count):
-        return F.from_ints(coin.draw_felts(count), self.device)
+        """count extension elements, d draws each -> [d, count]."""
+        return XF.from_ints([coin.draw_ext(self.d) for _ in range(count)],
+                            self.d, self.device)
 
     def prove(self, trace: torch.Tensor, mark=None) -> Proof:
         """Prove the AIR's statement for `trace` [w, n] (Montgomery int64
         on the prover's device). `mark(label)`, when given, is called at
         every phase boundary (chip_smoke.py times the phases with it)."""
         air, opts, hasher = self.air, self.opts, self.hasher
-        n, w, bn, k = self.n, self.w, self.bn, self.k
+        n, w, bn, k, d = self.n, self.w, self.bn, self.k, self.d
         assert tuple(trace.shape) == (w, n) and trace.device == self.device
         mark = mark or (lambda label: None)
 
@@ -173,13 +199,15 @@ class Prover:
         h_coeffs, h_lde = self.phase_composition(lde, t_alpha, t_beta,
                                                  b_alpha, b_beta)
         mark("constraint eval + composition")
-        h_tree = self.commit(h_lde)
+        # committed rows: column i's d coordinates at rows i*d .. i*d + d-1
+        h_rows = h_lde.transpose(0, 1).reshape(k * d, bn)
+        h_tree = self.commit(h_rows)
         coin.reseed(h_tree.root())
         mark("composition commit")
 
-        z = coin.draw_felt()
+        z = F.from_ints(coin.draw_ext(d), self.device)
         oods = self.phase_ood(trace_coeffs, h_coeffs, z)
-        ood_z, ood_zg, ood_h = ([int(v) for v in F.to_ints(o)] for o in oods)
+        ood_z, ood_zg, ood_h = (XF.flat_ints(o) for o in oods)
         coin.reseed(hasher.host_digest(ood_z + ood_zg + ood_h))
         g_z, g_zg, g_h = (self._draw(coin, w), self._draw(coin, w),
                           self._draw(coin, k))
@@ -191,20 +219,20 @@ class Prover:
         size, o, gw = bn, self.offset, self.gen_big
         fold = opts.fri_folding
         while size > opts.fri_max_remainder:
-            group = cur.reshape(fold, size // fold)
-            tree = self.commit(group)
+            rows = FRI.leaf_rows(cur, fold)
+            tree = self.commit(rows)
             coin.reseed(tree.root())
-            xi = coin.draw_felt()
+            xi = F.from_ints(coin.draw_ext(d), self.device)
             cur = FRI.fold(cur, xi, o, gw, fold)
-            fri_layers.append(FRI.FriLayer(tree, size, o, gw, group))
+            fri_layers.append(FRI.FriLayer(tree, size, o, gw, rows))
             size //= fold
             o = pow(o, fold, F.P)
             gw = pow(gw, fold, F.P)
-        remainder = [int(v) for v in F.to_ints(cur)]
+        remainder = XF.flat_ints(cur)
         coin.reseed(hasher.host_digest(remainder))
         mark("FRI layers")
 
-        nonce = coin.grind(opts.grinding_bits)
+        nonce = coin.grind(opts.grinding_bits, device=self.device)
         coin.reseed(hasher.host_digest([nonce]))
         positions = coin.draw_indices(opts.num_queries, bn)
         leaf_idxs, p_cur = [], list(positions)
@@ -216,7 +244,7 @@ class Prover:
             return F.to_ints(rows.index_select(
                 1, torch.tensor(idx, dtype=torch.int64, device=self.device)))
 
-        lde_host, h_host = opened(lde, positions), opened(h_lde, positions)
+        lde_host, h_host = opened(lde, positions), opened(h_rows, positions)
         fri_vals = [opened(layer.group, idx)
                     for layer, idx in zip(fri_layers, leaf_idxs)]
         all_paths = M.prove_batch_multi(

@@ -93,8 +93,9 @@ class RescueChainAir(Air):
 
 
 class RescueChainExample:
-    """Build the trace and public inputs, then prove, as the reference's
-    example does. Runs on the card unless `device` names another."""
+    """Build the trace and public inputs, then prove and verify, as the
+    reference's example does. Proves on the card unless `device` names
+    another."""
 
     def __init__(self, chain_length: int, options, device=None):
         self.chain_length = chain_length
@@ -113,3 +114,9 @@ class RescueChainExample:
 
     def prove(self):
         return Prover(self.air(), self.device).prove(self.trace)
+
+    def verify(self, proof, pub_inputs=None):
+        """The port's verifier on the host, with this example's options."""
+        from ..engine import verifier as V
+        return V.verify(RescueChainAir, proof, pub_inputs or self.pub_inputs(),
+                        expected_options=self.options)

@@ -100,7 +100,7 @@ def evaluate_schnorr(fx, current, nxt, agg, ark0, ark1, doubling, addition,
     # doubling and conditional-add constraints: one EC block on [2, 19, B]
     cur12 = fx.stack([fx.cols(current, 0, 19), fx.cols(current, 19, 38)])
     nxt12 = fx.stack([fx.cols(nxt, 0, 19), fx.cols(nxt, 19, 38)])
-    pts12 = fx.stack([gen12.expand_as(pkey), pkey])
+    pts12 = fx.stack([fx.expand(gen12, pkey), pkey])
     dflag = doubling[None]
     aflag = addition[None]
     dbl12 = E.enforce_point_doubling(fx, cur12, nxt12, dflag, b3)

@@ -324,3 +324,11 @@ class TransactionExample:
 
     def prove(self):
         return Prover(self.air(), self.device).prove(self.trace)
+
+    def verify(self, proof, pub_inputs=None):
+        """The port's verifier on the host, with this example's options and
+        depth."""
+        from ..engine import verifier as V
+        return V.verify(TransactionAir, proof, pub_inputs or self.pub_inputs(),
+                        air_kwargs={"depth": self.depth},
+                        expected_options=self.options)

@@ -14,16 +14,16 @@ Formulas mirror reference src/utils/ecc.rs (fp2 = fp[u]/(u^2-2u-2),
 fp6 = fp2[v]/(v^3+v+1); RCB-style complete addition for y^2 = x^3 + x + b).
 The curve constant b3 = 3b is passed as its 6 standard-form coordinates
 (utils/curve.py B3_LIMBS), so the multiply by it is chosen on the host.
+Arrays are built and joined only through the facade, so the same code runs
+on device tensors (BASE) and on the verifier's host arrays (HostExtOps).
 """
 from __future__ import annotations
-
-import torch
 
 from . import field as F
 
 
-def _cat(parts):
-    return torch.cat(parts, dim=-2)
+def _cat(fx, parts):
+    return fx.cat(parts, -2)
 
 
 def _karatsuba_operands(fx, x):
@@ -31,7 +31,7 @@ def _karatsuba_operands(fx, x):
     x0+x1, x0+x2, x1+x2) of the six Karatsuba fp2 multiplies."""
     x3 = x.reshape(x.shape[:-2] + (3, 2) + x.shape[-1:])
     sums = fx.add(x3[..., [0, 0, 1], :, :], x3[..., [1, 2, 2], :, :])
-    return torch.cat([x3, sums], dim=-3)
+    return fx.cat([x3, sums], -3)
 
 
 def f6_mul(fx, a, b):
@@ -41,29 +41,29 @@ def f6_mul(fx, a, b):
     xa, xb = _karatsuba_operands(fx, a), _karatsuba_operands(fx, b)
     a0, a1 = xa[..., 0, :], xa[..., 1, :]                   # [..., 6, B]
     b0, b1 = xb[..., 0, :], xb[..., 1, :]
-    prod = fx.mul(_cat([a0, a1, fx.sub(a0, a1)]),
-                  _cat([b0, b1, fx.sub(b1, b0)]))           # [..., 18, B]
+    prod = fx.mul(_cat(fx, [a0, a1, fx.sub(a0, a1)]),
+                  _cat(fx, [b0, b1, fx.sub(b1, b0)]))       # [..., 18, B]
     u, v, w = prod[..., 0:6, :], prod[..., 6:12, :], prod[..., 12:18, :]
     c0 = fx.add(u, fx.add(v, v))
     c1 = fx.add(fx.add(v, c0), w)
-    r = torch.stack([c0, c1], dim=-2)                        # [..., 6, 2, B]
+    r = fx.stack([c0, c1], -2)                               # [..., 6, 2, B]
     aa, bb, cc, ab, ac, bc = (r[..., k, :, :] for k in range(6))
     tmp = fx.add(fx.add(aa, bb), cc)
     c0 = fx.sub(tmp, bc)
     c1 = fx.sub(fx.sub(ab, bc), aa)
     c2 = fx.add(fx.sub(fx.sub(ac, tmp), cc), fx.add(bb, bb))
-    return _cat([c0, c1, c2])
+    return _cat(fx, [c0, c1, c2])
 
 
 def f2_mul(fx, a, b):
     """fp2 multiply on [..., 2, B] (u^2 = 2u + 2)."""
     a0, a1 = a[..., 0:1, :], a[..., 1:2, :]
     b0, b1 = b[..., 0:1, :], b[..., 1:2, :]
-    prod = fx.mul(_cat([a0, a1, fx.sub(a0, a1)]),
-                  _cat([b0, b1, fx.sub(b1, b0)]))
+    prod = fx.mul(_cat(fx, [a0, a1, fx.sub(a0, a1)]),
+                  _cat(fx, [b0, b1, fx.sub(b1, b0)]))
     u, v, w = prod[..., 0:1, :], prod[..., 1:2, :], prod[..., 2:3, :]
     c0 = fx.add(u, fx.add(v, v))
-    return _cat([c0, fx.add(fx.add(v, c0), w)])
+    return _cat(fx, [c0, fx.add(fx.add(v, c0), w)])
 
 
 def f2_inv(fx, a):
@@ -75,7 +75,7 @@ def f2_inv(fx, a):
     t = fx.inv(norm)
     c0 = fx.mul(fx.add(a0, fx.double(a1)), t)
     c1 = fx.neg(fx.mul(a1, t))
-    return _cat([c0, c1])
+    return _cat(fx, [c0, c1])
 
 
 def f6_inv(fx, a):
@@ -104,7 +104,7 @@ def f6_inv(fx, a):
     r0 = m(sb(r0, tmp), t)
     r1 = fx.neg(m(ad(m(c0_, c1_), c2_sq), t))
     r2 = m(ad(sb(c1_sq, m(c0_, c2_)), c2_sq), t)
-    return _cat([r0, r1, r2])
+    return _cat(fx, [r0, r1, r2])
 
 
 def _mul_b3(fx, b3, t):
@@ -114,22 +114,22 @@ def _mul_b3(fx, b3, t):
     the 18-multiply Karatsuba."""
     b3 = [int(v) % F.P for v in b3]
     if not any(b3[1:]):
-        return fx.mul(t, F.const(b3[0], t.device))
+        return fx.mul(t, fx.const(b3[0], t))
     if not any(b3[2:]):
         # fp2 multiply by (s0, s1) per fp6 coordinate (ecc.rs:424-439):
         # c0 = u + 2v, c1 = v + c0 + w with u = x0*s0, v = x1*s1,
         # w = (x0-x1)(s1-s0)
         s0, s1 = b3[0], b3[1]
-        rhs = F.from_ints([s0] * 3 + [s1] * 3 + [(s1 - s0) % F.P] * 3,
-                          t.device)[:, None]                      # [9, 1]
+        rhs = fx.embed([s0] * 3 + [s1] * 3 + [(s1 - s0) % F.P] * 3,
+                       t)                                         # [9, 1]
         x0, x1 = t[..., 0::2, :], t[..., 1::2, :]
-        prod = fx.mul(_cat([x0, x1, fx.sub(x0, x1)]), rhs)
+        prod = fx.mul(_cat(fx, [x0, x1, fx.sub(x0, x1)]), rhs)
         u, v, w = prod[..., 0:3, :], prod[..., 3:6, :], prod[..., 6:9, :]
         c0 = fx.add(u, fx.add(v, v))
         c1 = fx.add(fx.add(v, c0), w)
-        out = torch.stack([c0, c1], dim=-2)      # [..., 3, 2, B] pair-major
+        out = fx.stack([c0, c1], -2)             # [..., 3, 2, B] pair-major
         return out.reshape(out.shape[:-3] + (6,) + out.shape[-1:])
-    return f6_mul(fx, F.from_ints(b3, t.device)[:, None], t)
+    return f6_mul(fx, fx.embed(b3, t), t)
 
 
 # ---------------------------------------------------------------------------
@@ -165,7 +165,7 @@ def compute_double(fx, pt, b3):
     x3 = s(x3, t0)
     z3 = d(m(t2, t1))
     z3 = d(z3)
-    return _cat([x3, y3, z3])
+    return _cat(fx, [x3, y3, z3])
 
 
 def compute_add(fx, pt1, pt2, b3):
@@ -196,7 +196,7 @@ def compute_add(fx, pt1, pt2, b3):
     x3 = s(m(t3, x3), t0)
     t0 = m(t3, t1)
     z3 = a(m(t5, z3), t0)
-    return _cat([x3, y3, z3])
+    return _cat(fx, [x3, y3, z3])
 
 
 def compute_add_mixed(fx, pt1, pt2_affine, b3):
@@ -226,7 +226,7 @@ def compute_add_mixed(fx, pt1, pt2_affine, b3):
     x3 = s(m(t3, x3), t0)
     t0 = m(t3, t1)
     z3 = a(m(t5, z3), t0)
-    return _cat([x3, y3, z3])
+    return _cat(fx, [x3, y3, z3])
 
 
 # ---------------------------------------------------------------------------
@@ -239,7 +239,7 @@ def enforce_point_doubling(fx, cur19, nxt19, flag, b3):
     eqs = fx.mul(fx.sub(nxt19[..., 0:18, :], dbl), flag)
     bit = cur19[..., 18:19, :]
     binc = fx.mul(fx.sub(fx.mul(bit, bit), bit), flag)
-    return _cat([eqs, binc])
+    return _cat(fx, [eqs, binc])
 
 
 def enforce_point_addition_mixed(fx, cur19, nxt19, point12, flag, b3):
@@ -250,7 +250,7 @@ def enforce_point_addition_mixed(fx, cur19, nxt19, point12, flag, b3):
     expect = fx.add(fx.mul(added, bit), fx.mul(cur19[..., 0:18, :], not_bit))
     eqs = fx.mul(fx.sub(nxt19[..., 0:18, :], expect), flag)
     bitcopy = fx.mul(fx.sub(cur19[..., 18:19, :], nxt19[..., 18:19, :]), flag)
-    return _cat([eqs, bitcopy])
+    return _cat(fx, [eqs, bitcopy])
 
 
 def enforce_point_addition_reduce_x(fx, cur18, nxt18, point18, flag, b3):
@@ -260,4 +260,4 @@ def enforce_point_addition_reduce_x(fx, cur18, nxt18, point18, flag, b3):
     x_z = f6_mul(fx, nxt18[..., 0:6, :], added[..., 12:18, :])
     first = fx.sub(x_z, added[..., 0:6, :])
     rest = fx.sub(nxt18[..., 6:18, :], added[..., 6:18, :])
-    return fx.mul(_cat([first, rest]), flag)
+    return fx.mul(_cat(fx, [first, rest]), flag)

@@ -1,5 +1,6 @@
 """Host-side (Python int) polynomial helpers for small sizes: periodic-column
-interpolation and the roots of unity of the evaluation domains. A copy of
+interpolation, the roots of unity of the evaluation domains, evaluation and
+degree for the verifier. A copy of
 certificate_stark_tpu/utils/poly_host.py."""
 from __future__ import annotations
 
@@ -46,3 +47,17 @@ def ntt(vals, invert=False):
 def intt(evals):
     return ntt(evals, invert=True)
 
+
+
+def eval_poly(coeffs, x: int) -> int:
+    acc = 0
+    for c in reversed(coeffs):
+        acc = (acc * x + c) % P
+    return acc
+
+
+def poly_degree(coeffs) -> int:
+    for i in range(len(coeffs) - 1, -1, -1):
+        if coeffs[i] % P != 0:
+            return i
+    return -1

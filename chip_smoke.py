@@ -12,16 +12,24 @@ paths run with their launch counts set to 0 just before and read just
 after: the rescue chain of length 1024 (Rescue commitments) and the
 composed state-transition AIR at 128 transactions, depth 15, with bench.py's
 options (BLAKE3 commitments); each is timed by phase after a warm-up and
-profiled with torch.profiler. The committed goldens are reproduced (rescue
-chain 16 from tests/vectors/transcripts.json; rescue chain 1024 and the
-2-transaction Rescue and BLAKE3 and 16-transaction BLAKE3 transaction proofs
-from tests/vectors/torch_goldens.json), and chain 8192 and the
-128-transaction proof are proven once more with the plain versions, which
-must give the same bytes. Any mismatch raises. Prints a `kernels` JSON
-line, the card's name and power limit, and as the last line
+profiled with torch.profiler. A third main path is the example CLI's
+default at the same size: the cubic extension with BLAKE3 commitments, on
+the same witness, timed by phase, verified by the port's verifier (and two
+tampered copies rejected). The extension arithmetic is held against its
+plain CPU results, and the batched PoW search on the card against the host
+loop. The committed goldens are reproduced (rescue chain 16, base and
+cubic, from tests/vectors/transcripts.json; rescue chain 1024, chain 16
+quadratic with Rescue grinding, and the transaction proofs from
+tests/vectors/torch_goldens.json), the port's verifier accepts the
+chain-1024 and 128-transaction base proofs, and chain 8192 and the base and
+cubic 128-transaction proofs are proven once more with the plain versions,
+which must give the same bytes. Any mismatch raises. Prints a `kernels`
+JSON line, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when there is
 no CUDA device or no port beside it.
 """
+import concurrent.futures
+import copy
 import hashlib
 import json
 import os
@@ -93,7 +101,24 @@ TRACE_BITS = ("path_bits", "sbits", "hbits", "dbits", "gbits")
 # multiply), the inverse s-box chain, and one reduction for each MDS layer
 RESCUE_DEPTH = 2 + INV_ALPHA_SQR + INV_ALPHA_MUL + 2
 TX_GOLDENS = ("transaction_2tx_d3_rescue", "transaction_2tx_d3_blake3",
-              "transaction_16tx_d15_blake3")
+              "transaction_16tx_d15_blake3", "transaction_2tx_d3_cubic_blake3",
+              "transaction_16tx_d15_cubic_blake3_grind12")
+# rescue chain 16 goldens: name -> (vector file, options where the file
+# does not hold them)
+CHAIN16_GOLDENS = {
+    "rescue_chain16_rescue": ("transcripts.json", dict(
+        num_queries=14, blowup=4, hash_fn="rescue")),
+    "rescue_chain16_cubic_grind4": ("transcripts.json", dict(
+        num_queries=8, blowup=4, hash_fn="blake3", extension_degree=3,
+        grinding_bits=4)),
+    "rescue_chain16_quadratic_rescue_grind11": ("torch_goldens.json", None),
+}
+# the example CLI's defaults (certificate_stark_tpu_torch/examples/
+# state_transition.py): bench.py's options over the cubic extension
+CLI_OPTS = dict(BENCH_OPTS, extension_degree=3)
+EXT_POINTS = 1 << 20       # extension checks: [d, 2^20]
+GRIND_CASES = (("blake3", 12), ("blake3", 16), ("rescue", 12), ("rescue", 16))
+HOST_SCAN_CHUNK = 2048     # nonces a host-loop worker checks at a time
 # Batch sizes at which the Rescue kernel is checked and timed: every size a
 # chain-1024 proof launches (2^0 .. 2^15) and ragged ones
 RESCUE_SIZES = sorted({1, 3, 33, 1000} | {1 << k for k in range(17)})
@@ -412,11 +437,104 @@ def _golden_check(name, golden, prover, proof):
 
 
 def phase_golden16(dev):
+    """The rescue chain 16 goldens: the base field with Rescue
+    commitments, the cubic extension with BLAKE3 and 4-bit grinding, the
+    quadratic extension with Rescue commitments and 11-bit Rescue grinding
+    (the batched search on the card)."""
     from certificate_stark_tpu_torch.engine.options import ProofOptions
-    with open(os.path.join(ROOT, "tests", "vectors", "transcripts.json")) as f:
-        golden = json.load(f)["rescue_chain16_rescue"]
-    opts = ProofOptions(num_queries=14, blowup=4, hash_fn="rescue")
-    _golden_check("rescue_chain16_rescue", golden, *_prove(16, opts, dev))
+    for name, (path, od) in CHAIN16_GOLDENS.items():
+        with open(os.path.join(ROOT, "tests", "vectors", path)) as f:
+            golden = json.load(f)[name]
+        opts = ProofOptions(**(od or golden["options"]))
+        _golden_check(name, golden, *_prove(16, opts, dev))
+
+
+def phase_ext(dev):
+    """ext_mul, ext_mul_sum and ext_inv_vec at d = 2 and 3 on the card (its
+    base products on f63_mul) against the same functions on the CPU (the
+    plain versions), bit for bit: operands [d, 2^20]; ext_mul_sum sums
+    [d, 8, 2^17] over its 8 rows against [d, 8, 1] coefficients, as DEEP
+    sums the composition columns. Each is timed on the card."""
+    from certificate_stark_tpu_torch.ops import extfield as XF
+    from certificate_stark_tpu_torch.ops import field as F
+    g = torch.Generator().manual_seed(13)
+
+    def rand(*shape):
+        return torch.randint(0, F.P, shape, generator=g, dtype=torch.int64)
+    out = {}
+    for d in (2, 3):
+        a, b = rand(d, EXT_POINTS), rand(d, EXT_POINTS)
+        rows, coeffs = rand(d, 8, EXT_POINTS // 8), rand(d, 8, 1)
+        cases = {
+            "ext_mul": (lambda x, y: XF.ext_mul(x, y, d), (a, b)),
+            "ext_mul_sum": (lambda x, y: XF.ext_mul_sum(x, y, d, dim=1),
+                            (rows, coeffs)),
+            "ext_inv_vec": (lambda x: XF.ext_inv_vec(x, d), (a,)),
+        }
+        for name, (fn, args) in cases.items():
+            exp = fn(*args)
+            on_card = [t.to(dev) for t in args]
+            check(torch.equal(fn(*on_card).cpu(), exp),
+                  f"{name} (d = {d}) on the card differs from the CPU")
+            out[f"{name}_d{d}"] = cuda_ms(lambda: fn(*on_card), 5)
+    log("extension ops on the card == CPU at [d, 2^20]; ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in out.items()))
+    return out
+
+
+def _host_scan(args):
+    """The first nonce in [lo, hi) that the coin's PoW check passes (the
+    host loop of RandomCoin.grind), or None. Runs in a worker process."""
+    from certificate_stark_tpu_torch.engine.coin import RandomCoin
+    from certificate_stark_tpu_torch.engine.hasher import get_hasher
+    hash_fn, state, bits, lo, hi = args
+    coin = RandomCoin(get_hasher(hash_fn), [0])
+    coin.state = tuple(state)
+    return next((n for n in range(lo, hi) if coin.check_pow(n, bits)), None)
+
+
+def phase_grind(dev):
+    """The batched PoW search on the card (one blake3_merge or Rescue
+    digest a batch of 2^15 nonces) at 12 and 16 bits for BLAKE3 and
+    Rescue, timed, against the host loop over every nonce up to the one it
+    returns (in worker processes, one per CPU core)."""
+    import multiprocessing
+    from certificate_stark_tpu_torch.engine.coin import RandomCoin
+    from certificate_stark_tpu_torch.engine.hasher import get_hasher
+    from certificate_stark_tpu_torch.ops import kernels as K
+    out = {}
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(os.cpu_count(),
+                                                mp_context=ctx) as pool:
+        for hash_fn, bits in GRIND_CASES:
+            h = get_hasher(hash_fn)
+            coin = RandomCoin(h, [3, 1, 4, 1, 5])
+            coin.reseed(h.host_digest([9, 2, 6, bits]))
+            K.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nonce = coin.grind(bits, device=dev)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            kernel = (K.blake3_merge if hash_fn == "blake3"
+                      else K.rescue_permutation)
+            check(kernel.launches > 0, f"{hash_fn} grinding launched no "
+                  f"{kernel.__name__}")
+            t0 = time.perf_counter()
+            jobs = [(hash_fn, coin.state, bits, lo,
+                     min(lo + HOST_SCAN_CHUNK, nonce + 1))
+                    for lo in range(0, nonce + 1, HOST_SCAN_CHUNK)]
+            host = next(n for n in pool.map(_host_scan, jobs)
+                        if n is not None)
+            check(host == nonce, f"{hash_fn} {bits}-bit grinding: the card "
+                  f"found {nonce}, the host loop {host}")
+            out[f"{hash_fn}_{bits}"] = dict(nonce=nonce, ms=ms,
+                                            launches=kernel.launches)
+            log(f"grind {hash_fn} {bits} bits on the card: nonce {nonce} "
+                f"(= host loop, {time.perf_counter() - t0:.1f} s on "
+                f"{os.cpu_count()} processes) in {ms:.2f} ms, "
+                f"{kernel.launches} {kernel.__name__} launches")
+    return out
 
 
 def phase_full(dev):
@@ -463,7 +581,7 @@ def phase_full(dev):
         check(launches[name] > 0, f"{name} was not launched on the chain "
               "main path")
     _golden_check("rescue_chain1024_rescue", golden, prover, proof)
-    return launches
+    return launches, ex, proof
 
 
 def phase_scale(dev):
@@ -820,10 +938,11 @@ def phase_tx_goldens(dev):
         log(f"  {name}: {time.perf_counter() - t0:.1f} s with the witness")
 
 
-def phase_tx_full(dev, ex):
-    """The composed AIR at 128 transactions, depth 15, bench.py's options:
-    warm-up, then the counted and timed main-path run, the trace build
-    included as bench.py times it."""
+def phase_tx_full(dev, ex, what="bench options"):
+    """The composed AIR at 128 transactions, depth 15, with ex.options
+    (bench.py's, or the example CLI's cubic ones): warm-up, then the
+    counted and timed main-path run, the trace build included as bench.py
+    times it."""
     from certificate_stark_tpu_torch.engine.prover import Prover
     from certificate_stark_tpu_torch.ops import kernels as K
     t0 = time.perf_counter()
@@ -852,8 +971,8 @@ def phase_tx_full(dev, ex):
     launches = {fn.__name__: fn.launches for fn in K.WRAPPERS}
     peak = torch.cuda.max_memory_allocated()
     raw = proof.to_bytes()
-    log(f"{TX_COUNT} tx depth {TX_DEPTH} prove wall (trace build included): "
-        f"{wall * 1e3:.1f} ms; prover set-up {setup_ms:.1f} ms")
+    log(f"{TX_COUNT} tx depth {TX_DEPTH}, {what}: prove wall (trace build "
+        f"included) {wall * 1e3:.1f} ms; prover set-up {setup_ms:.1f} ms")
     for label, ms in spans:
         log(f"  {label:32s} {ms:10.1f} ms")
     log(f"  peak device memory {peak / 2**20:.0f} MiB; kernel launches "
@@ -868,6 +987,44 @@ def phase_tx_full(dev, ex):
     return prover, raw, launches
 
 
+def phase_verify(ex, raw, what):
+    """The port's verifier (host Python ints) accepts the proof `raw` of
+    `ex`'s statement, timed; where the time goes, from one more run under
+    cProfile; and it rejects a copy with one query value flipped and one
+    with one OOD value flipped."""
+    import cProfile
+    import pstats
+    from certificate_stark_tpu_torch.engine.proof import Proof
+    from certificate_stark_tpu_torch.engine.verifier import VerificationError
+    from certificate_stark_tpu_torch.ops.field import P
+    t0 = time.perf_counter()
+    check(ex.verify(Proof.from_bytes(raw)) is True,
+          f"{what}: the port's verifier rejects the proof")
+    ms = (time.perf_counter() - t0) * 1e3
+    prof = cProfile.Profile()
+    prof.runcall(ex.verify, Proof.from_bytes(raw))
+    stats = pstats.Stats(prof).stats
+    parts = {name: max((v[3] for (_, _, fn), v in stats.items()
+                        if fn == name), default=0.0) * 1e3
+             for name in ("_periodic_values_at", "evaluate_transition",
+                          "verify_path")}
+    log(f"{what}: the port's verifier accepts it in {ms:.1f} ms; under "
+        "cProfile (cumulative ms): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in parts.items()))
+    for field, flip in (("query value", lambda p: p.queries[0].trace_row),
+                        ("OOD value", lambda p: p.ood_trace_z)):
+        bad = Proof.from_bytes(raw)
+        vals = flip(bad)
+        vals[1] = (vals[1] + 1) % P
+        try:
+            ex.verify(bad)
+        except VerificationError as e:
+            log(f"  a flipped {field}: rejected ({str(e)[:40]})")
+        else:
+            check(False, f"{what}: a proof with a flipped {field} passes")
+    return ms
+
+
 def _device_by_name(prof):
     from torch.autograd import DeviceType
     by_name = {}
@@ -879,12 +1036,10 @@ def _device_by_name(prof):
     return by_name
 
 
-def phase_tx_profile(dev, ex, prover):
+def profile_tx_proof(ex, prover, what):
     """One warm 128-transaction proof (trace build included) under
-    torch.profiler: device time by kernel, busy share of the wall time;
-    then the constraint evaluation alone: its launches and device time."""
+    torch.profiler: device time by kernel, busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
-    from certificate_stark_tpu_torch.engine.fieldops import BASE
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         prover.prove(ex.trace)
@@ -892,8 +1047,8 @@ def phase_tx_profile(dev, ex, prover):
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = _device_by_name(prof)
     device_ms = sum(t for t, _ in by_name.values())
-    log(f"profile, {TX_COUNT} tx warm proof (trace build included): wall "
-        f"{wall_ms:.1f} ms, device busy {device_ms:.1f} ms "
+    log(f"profile, {TX_COUNT} tx warm proof, {what} (trace build "
+        f"included): wall {wall_ms:.1f} ms, device busy {device_ms:.1f} ms "
         f"({100 * device_ms / wall_ms:.1f}%), "
         f"{sum(c for _, c in by_name.values())} kernel launches")
     groups = {}
@@ -908,6 +1063,13 @@ def phase_tx_profile(dev, ex, prover):
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         log(f"  {t:9.3f} ms {c:6d}x {name[:90]}")
 
+
+def phase_tx_profile(dev, ex, prover):
+    """The warm proof's profile (profile_tx_proof), the trace build alone,
+    then the constraint evaluation alone: its launches and device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from certificate_stark_tpu_torch.engine.fieldops import BASE
+    profile_tx_proof(ex, prover, "bench options")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         trace = ex.trace
         torch.cuda.synchronize()
@@ -931,7 +1093,7 @@ def phase_tx_profile(dev, ex, prover):
         f"(f63_mul {sum(c for n, (_, c) in ev.items() if 'f63_mul' in n)})")
 
 
-def phase_tx_plain(dev, ex, kernel_raw):
+def phase_tx_plain(dev, ex, kernel_raw, what="bench options"):
     """The 128-transaction proof with the plain versions, trace build
     included: the same bytes as with the kernels."""
     from certificate_stark_tpu_torch.engine.prover import Prover
@@ -942,12 +1104,13 @@ def phase_tx_plain(dev, ex, kernel_raw):
         prover = Prover(ex.air(), device=dev)
         raw = prover.prove(ex.trace).to_bytes()
     torch.cuda.synchronize()
-    log(f"{TX_COUNT} tx prove with plain versions (trace build and prover "
-        f"set-up included): {(time.perf_counter() - t0) * 1e3:.1f} ms")
-    check(raw == kernel_raw, f"{TX_COUNT} tx: the proof with kernels differs "
-          "from the plain one")
-    log(f"{TX_COUNT} tx: proofs with kernels and with plain versions are "
-        f"equal, sha256 {hashlib.sha256(raw).hexdigest()[:16]}...")
+    log(f"{TX_COUNT} tx, {what}: prove with plain versions (trace build "
+        f"and prover set-up included): "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    check(raw == kernel_raw, f"{TX_COUNT} tx, {what}: the proof with kernels "
+          "differs from the plain one")
+    log(f"{TX_COUNT} tx, {what}: proofs with kernels and with plain versions "
+        f"are equal, sha256 {hashlib.sha256(raw).hexdigest()[:16]}...")
 
 
 def card_line():
@@ -988,8 +1151,11 @@ def main():
     from certificate_stark_tpu_torch.engine.options import ProofOptions
     from certificate_stark_tpu_torch.models import transaction as TX
     rows = phase_kernels(dev) + phase_blake3(dev)
+    phase_ext(dev)
+    phase_grind(dev)
     phase_golden16(dev)
-    chain_launches = phase_full(dev)
+    chain_launches, chain_ex, chain_proof = phase_full(dev)
+    phase_verify(chain_ex, chain_proof.to_bytes(), "chain 1024")
     phase_profile(dev)
     phase_scale(dev)
     phase_tx_goldens(dev)
@@ -1002,11 +1168,23 @@ def main():
     prover, raw, tx_launches = phase_tx_full(dev, ex)
     phase_tx_profile(dev, ex, prover)
     phase_tx_plain(dev, ex, raw)
+    phase_verify(ex, raw, f"{TX_COUNT} tx, bench options")
+    # the example CLI's defaults on the same witness
+    cli = copy.copy(ex)
+    cli.options = ProofOptions(**CLI_OPTS)
+    what = "cubic, BLAKE3 (the example CLI's defaults)"
+    cli_prover, cli_raw, cli_launches = phase_tx_full(dev, cli, what)
+    profile_tx_proof(cli, cli_prover, what)
+    phase_verify(cli, cli_raw, f"{TX_COUNT} tx, {what}")
+    phase_tx_plain(dev, cli, cli_raw, what)
+    paths = {"chain1024": chain_launches, "tx128": tx_launches,
+             "tx128_cubic": cli_launches}
     for row in rows:
-        path = "chain1024" if row["name"] == "rescue_permutation" else "tx128"
-        row["launches"] = (chain_launches if path == "chain1024"
-                           else tx_launches)[row["name"]]
+        path = ("chain1024" if row["name"] == "rescue_permutation"
+                else "tx128_cubic")
+        row["launches"] = paths[path][row["name"]]
         row["path"] = path
+        row["launches_by_path"] = {p: n[row["name"]] for p, n in paths.items()}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -18,6 +18,16 @@ compares; the CPU tests compare the two-transaction ones.
   transaction_16tx_d15_blake3  bench.py `_bench_transaction` options at its
                                CPU-fallback size (16 transactions, depth 15,
                                seed 42): the batched witness path
+  rescue_chain16_quadratic_rescue_grind11
+                               rescue hash chain 16, quadratic extension,
+                               Rescue commitments, 11 bits of grinding (the
+                               batched nonce search)
+  transaction_2tx_d3_cubic_blake3
+                               transaction_2tx_d3_blake3 over the cubic
+                               extension (the example CLI's default field)
+  transaction_16tx_d15_cubic_blake3_grind12
+                               transaction_16tx_d15_blake3 over the cubic
+                               extension with 12 bits of grinding
 
 The transaction goldens use the fp2 curve instance (the library default).
 Run with JAX on the CPU; names select goldens (default: all), and the file
@@ -65,20 +75,19 @@ def _record(opts_dict, prover, proof, t0, prove_s):
     }
 
 
-def chain_golden():
+def chain_golden(chain, od):
     from certificate_stark_tpu.models import rescue_chain as RC
-    od = dict(TX_TEST_OPTS, num_queries=42, blowup=4)
     opts = ProofOptions(**od)
     t0 = time.time()
-    ex = RC.RescueChainExample(CHAIN, opts)
-    air = RC.RescueChainAir(CHAIN * 8, ex.pub_inputs(), opts)
+    ex = RC.RescueChainExample(chain, opts)
+    air = RC.RescueChainAir(chain * 8, ex.pub_inputs(), opts)
     p = PR.Prover(air)
     p.coin_journal = []
     proof = p.prove(ex.trace)
     prove_s = time.time() - t0
     assert ex.verify(proof)
     out = _record(od, p, proof, t0, prove_s)
-    out.update(chain_length=CHAIN, seed=ex.seed, result=ex.result)
+    out.update(chain_length=chain, seed=ex.seed, result=ex.result)
     return out
 
 
@@ -109,7 +118,9 @@ def transaction_golden(n_tx, depth, seed, od):
 
 
 GOLDENS = {
-    f"rescue_chain{CHAIN}_rescue": chain_golden,
+    f"rescue_chain{CHAIN}_rescue":
+        lambda: chain_golden(CHAIN, dict(TX_TEST_OPTS, num_queries=42,
+                                         blowup=4)),
     "transaction_2tx_d3_rescue":
         lambda: transaction_golden(2, 3, 3, TX_TEST_OPTS),
     "transaction_2tx_d3_blake3":
@@ -117,6 +128,17 @@ GOLDENS = {
                                                  hash_fn="blake3")),
     "transaction_16tx_d15_blake3":
         lambda: transaction_golden(16, 15, 42, BENCH_OPTS),
+    "rescue_chain16_quadratic_rescue_grind11":
+        lambda: chain_golden(16, dict(TX_TEST_OPTS, blowup=4,
+                                      extension_degree=2, grinding_bits=11)),
+    "transaction_2tx_d3_cubic_blake3":
+        lambda: transaction_golden(2, 3, 3, dict(TX_TEST_OPTS,
+                                                 hash_fn="blake3",
+                                                 extension_degree=3)),
+    "transaction_16tx_d15_cubic_blake3_grind12":
+        lambda: transaction_golden(16, 15, 42, dict(BENCH_OPTS,
+                                                    extension_degree=3,
+                                                    grinding_bits=12)),
 }
 
 

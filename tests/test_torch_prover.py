@@ -1,7 +1,7 @@
 """The port's engine and the rescue-chain slice against the JAX package, on
 the CPU: Merkle trees, the rescue-chain trace and constraints, the coin, and
 the whole proof of `rescue_chain16_rescue`, which must equal the committed
-golden byte for byte and pass the JAX package's verifier. Tolerance: exact
+golden byte for byte and pass the JAX package's verifier and the port's. Tolerance: exact
 equality."""
 import hashlib
 import json
@@ -29,6 +29,7 @@ from certificate_stark_tpu_torch.engine.coin import RandomCoin
 from certificate_stark_tpu_torch.engine.fieldops import BASE
 from certificate_stark_tpu_torch.engine.hasher import RescueHasher
 from certificate_stark_tpu_torch.engine.options import ProofOptions
+from certificate_stark_tpu_torch.engine.proof import Proof
 from certificate_stark_tpu_torch.engine.prover import Prover
 from certificate_stark_tpu_torch.models import rescue_chain as RC
 from certificate_stark_tpu_torch.utils.convert import (from_jax_limbs,
@@ -146,6 +147,11 @@ def test_chain16_proof_passes_jax_verifier(chain16):
                      ex.pub_inputs())
 
 
+def test_chain16_proof_passes_port_verifier(chain16):
+    ex, _, raw = chain16
+    assert ex.verify(Proof.from_bytes(raw))
+
+
 def test_chain16_tampered_proof_fails_jax_verifier(chain16):
     ex, _, raw = chain16
     proof = JProof.from_bytes(raw)
@@ -163,6 +169,11 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 sys.path.insert(0, sys.argv[1])
 import chip_smoke  # noqa: F401
+# the modules of the extension, verifier and grinding slice, the CLI too
+need = {"certificate_stark_tpu_torch." + m for m in (
+    "params.extensions", "ops.extfield", "engine.fieldops", "engine.coin",
+    "engine.fri", "engine.verifier", "examples.state_transition")}
+assert need <= set(sys.modules), sorted(need - set(sys.modules))
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m == "jax" or m.startswith("jax.")
              or m == "certificate_stark_tpu"

@@ -4,7 +4,7 @@ every kind of curve constant), the witness, the plain version of the trace
 kernel, the AIR (degrees, periodic columns, assertions, constraint
 evaluation), the Rescue leaf hash of 94-element rows, and the whole
 2-transaction BLAKE3 proof, which must equal the committed golden byte for
-byte. The JAX side runs through its numpy facade (`NP`) or its host code.
+byte and pass the port's verifier. The JAX side runs through its numpy facade (`NP`) or its host code.
 Tolerance: exact equality.
 
 The module runs on the fp2 curve instance (the library default, which the
@@ -29,7 +29,9 @@ from certificate_stark_tpu.utils import witness as JW
 from certificate_stark_tpu_torch.engine.fieldops import BASE
 from certificate_stark_tpu_torch.engine.hasher import RescueHasher
 from certificate_stark_tpu_torch.engine.options import ProofOptions
+from certificate_stark_tpu_torch.engine.proof import Proof
 from certificate_stark_tpu_torch.engine.prover import Prover
+from certificate_stark_tpu_torch.engine.verifier import VerificationError
 from certificate_stark_tpu_torch.models import transaction as TX
 from certificate_stark_tpu_torch.ops import ecc as E
 from certificate_stark_tpu_torch.ops import field as F
@@ -189,17 +191,37 @@ def test_rescue_leaf_hash_of_transaction_rows_matches_jax():
     assert got == [jh.host_digest(list(std[:, j])) for j in range(3)]
 
 
-def test_blake3_proof_equals_golden(ex2):
+@pytest.fixture(scope="module")
+def blake3_proof(ex2):
+    """The port's proof of the golden's statement: (coin journal, bytes)."""
     ex, trace = ex2
-    g = _golden()
-    assert [list(r) for r in ex.pub_inputs()] == [g["initial_root"],
-                                                  g["final_root"]]
     prover = Prover(ex.air(), device="cpu")
     prover.coin_journal = []
     raw = prover.prove(trace).to_bytes()
-    assert [[k, v] for k, v in prover.coin_journal] == g["journal"]
+    return prover.coin_journal, raw
+
+
+def test_blake3_proof_equals_golden(ex2, blake3_proof):
+    ex, _ = ex2
+    g = _golden()
+    assert [list(r) for r in ex.pub_inputs()] == [g["initial_root"],
+                                                  g["final_root"]]
+    journal, raw = blake3_proof
+    assert [[k, v] for k, v in journal] == g["journal"]
     assert hashlib.sha256(raw).hexdigest() == g["proof_sha256"]
     assert len(raw) == g["proof_len"] == 69524
+
+
+def test_blake3_proof_passes_port_verifier(ex2, blake3_proof):
+    """The port's own verifier accepts the golden proof, and rejects it
+    with one OOD value of the next-row frame flipped."""
+    ex, _ = ex2
+    raw = blake3_proof[1]
+    assert ex.verify(Proof.from_bytes(raw))
+    bad = Proof.from_bytes(raw)
+    bad.ood_trace_zg[3] = (bad.ood_trace_zg[3] + 1) % P
+    with pytest.raises(VerificationError, match="^ood:"):
+        ex.verify(bad)
 
 
 def test_default_device_needs_cuda():
