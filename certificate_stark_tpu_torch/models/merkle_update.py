@@ -1,7 +1,9 @@
-"""Merkle-update sub-AIR pieces that the composed state-transition AIR uses:
-the register map, the host trace step and the constraint blocks.
-Counterpart of certificate_stark_tpu/models/merkle_update.py (reference
-src/merkle/update/), without `MerkleUpdateAir` itself.
+"""Merkle-update sub-AIR — reference src/merkle/update/: proves two Merkle
+authentication-path updates (sender & receiver) per transaction over a
+depth-`d` Rescue tree. Width 65, 512 steps a transaction, hash phase
+8*d+7 steps. Counterpart of certificate_stark_tpu/models/merkle_update.py;
+its register map, host trace step and constraint blocks also serve the
+composed state-transition AIR.
 
 Register map (src/merkle/constants.rs:31-63):
   0..14  sender old-path hash state     14      sender index bit
@@ -11,10 +13,18 @@ Register map (src/merkle/constants.rs:31-63):
 Constraint slots: 0..58 auth clusters (with the sender/receiver bit at
 14/43), 58..65 root carry, 65..90 key/nonce copies, 90 balance, 91 sender
 nonce, 92..99 intermediate-root equality, 99..106 previous-root match.
+
+Quirk replicated: index-bit registers are forced to 1 at global row 1 for
+constraint-degree stability (update/prover.rs:72-77).
 """
 from __future__ import annotations
 
-from ..utils import rescue_ref as RR
+from ..engine.air import Air, Assertion, ConstraintDegree
+from ..engine.prover import Prover
+from ..ops import rescue as R
+from ..params import data as D
+from ..params.data import P
+from ..utils import device as DV, rescue_ref as RR
 from .constraints import rescue_enforce_round
 
 TRACE_WIDTH = 65
@@ -48,6 +58,136 @@ def _auth_update(row, base, step, index, path):
             row[base:base + 7] = node
             row[base + 15:base + 15 + 7] = node
         row[base + 14] = bit
+
+
+def tx_rows(initial_root, s_old, r_old, delta, s_idx, r_idx, s_path, r_path,
+            depth):
+    """One 512-row transaction window as a list of 65-int rows
+    (update/trace.rs:19-136): the host reference of `build_trace`."""
+    thl = hash_length(depth)
+    row = [0] * TRACE_WIDTH
+    row[S_INIT:S_INIT + 14] = [v % P for v in s_old]
+    row[S_UPD:S_UPD + 14] = [v % P for v in s_old]
+    row[S_UPD + 12] = (s_old[12] - delta) % P
+    row[S_UPD + 13] = (s_old[13] + 1) % P
+    row[R_INIT:R_INIT + 14] = [v % P for v in r_old]
+    row[R_UPD:R_UPD + 14] = [v % P for v in r_old]
+    row[R_UPD + 12] = (r_old[12] + delta) % P
+    row[PREV_ROOT:PREV_ROOT + 7] = list(initial_root)
+    rows = [list(row)]
+    for step in range(CYCLE - 1):
+        row = list(row)
+        if step < thl:
+            _auth_update(row, S_INIT, step, s_idx, s_path)
+            _auth_update(row, R_INIT, step, r_idx, r_path)
+        if step == thl - 1:
+            row[PREV_ROOT:PREV_ROOT + 7] = row[R_UPD:R_UPD + 7]
+        rows.append(row)
+    return rows
+
+
+def build_trace(txs, depth, device=None):
+    """txs: list of dicts with keys initial_root, s_old, r_old, delta, s_idx,
+    r_idx, s_path, r_path. Returns the Montgomery trace [65, 512*len(txs)]
+    on `device`, built by the composed AIR's trace kernel
+    (models/trace_device.py `build_trace_mu`)."""
+    from .trace_device import build_trace_mu
+    return build_trace_mu(txs, depth, DV.resolve(device))
+
+
+class MerkleUpdateAir(Air):
+    """Public inputs: (initial_root[7], final_root[7]); depth via air kwarg."""
+
+    name = "merkle-update"
+    trace_width = TRACE_WIDTH
+
+    def __init__(self, trace_length, pub_inputs, options, depth=15):
+        super().__init__(trace_length, pub_inputs, options)
+        self.depth = depth
+        self.initial_root = [int(x) % P for x in pub_inputs[0]]
+        self.final_root = [int(x) % P for x in pub_inputs[1]]
+
+    def transition_degrees(self):
+        c = (CYCLE,)
+        auth = ([ConstraintDegree(3, c)] * 14 + [ConstraintDegree(2, c)]
+                + [ConstraintDegree(3, c)] * 14)
+        rest = [ConstraintDegree(1, c)] * 48
+        return auth + auth + rest
+
+    def periodic_columns(self):
+        thl = hash_length(self.depth)
+        setup = [1] + [0] * (CYCLE - 1)
+        tx_hash = [1] * thl + [0] * (CYCLE - thl)
+        hash_input = [0] * 7 + [1]
+        finish = [0] * (thl - 1) + [1] + [0] * (CYCLE - thl)
+        hash_flag = [tx_hash[i] * (1 if i % 8 < 7 else 0)
+                     for i in range(CYCLE)]
+        cols = [setup, tx_hash, hash_input, finish, hash_flag]
+        for j in range(2 * R.STATE_WIDTH):
+            cols.append([D.RESCUE_ARK[i][j] for i in range(R.CYCLE_LENGTH)])
+        return cols
+
+    def evaluate_transition(self, fx, current, nxt, periodic):
+        setup, tx_hash, hash_input, finish, hash_flag = (
+            fx.col(periodic, i)[None] for i in range(5))       # [1, B]
+        ark0 = fx.cols(periodic, 5, 19)
+        ark1 = fx.cols(periodic, 19, 33)
+
+        res = [None] * 106
+
+        def agg(idx, val):
+            res[idx] = val if res[idx] is None else fx.add(res[idx], val)
+
+        evaluate_setup_values(fx, current, agg, setup)
+        evaluate_merkle_auth(fx, current, nxt, agg, ark0, ark1, tx_hash,
+                             hash_input, finish, hash_flag)
+        return fx.stack(res)
+
+    def assertions(self):
+        last = self.trace_length - 1
+        return ([Assertion(PREV_ROOT + i, 0, self.initial_root[i])
+                 for i in range(7)]
+                + [Assertion(PREV_ROOT + i, last, self.final_root[i])
+                   for i in range(7)])
+
+
+class MerkleUpdateExample:
+    """Mirrors update/mod.rs TransactionExample (depth is a parameter here;
+    the reference switches 3/15 via #[cfg(test)], merkle/constants.rs:20-25).
+    The witness is built on the host in __init__; `trace` builds the trace
+    on the device. Runs on the card unless `device` names another."""
+
+    def __init__(self, num_transactions: int, options, depth: int = 15,
+                 seed: int = 1, device=None):
+        from ..utils import witness as W
+        self.options = options
+        self.depth = depth
+        self.device = DV.resolve(device)
+        self.md = W.build_random(num_transactions, depth, seed)
+
+    @property
+    def trace(self):
+        """Built on demand, not cached."""
+        return build_trace(self.md.tx_dicts(), self.depth, self.device)
+
+    def pub_inputs(self):
+        return (list(self.md.initial_roots[0]), list(self.md.final_root))
+
+    def air(self):
+        return MerkleUpdateAir(CYCLE * len(self.md.deltas), self.pub_inputs(),
+                               self.options, depth=self.depth)
+
+    def prove(self):
+        return Prover(self.air(), self.device).prove(self.trace)
+
+    def verify(self, proof, pub_inputs=None):
+        """The port's verifier on the host, with this example's options and
+        depth."""
+        from ..engine import verifier as V
+        return V.verify(MerkleUpdateAir, proof,
+                        pub_inputs or self.pub_inputs(),
+                        air_kwargs={"depth": self.depth},
+                        expected_options=self.options)
 
 
 def evaluate_setup_values(fx, current, agg, setup):

@@ -4,7 +4,9 @@ Counterpart of certificate_stark_tpu/models/trace_device.py
 `build_trace_device`: the witness is packed on the host into per-transaction
 input tensors (`pack_witness`) and the trace kernel (csrc/tx_trace.cu,
 ops/kernels.py `transaction_trace`) builds the Montgomery trace
-[94, 1024*T], one thread block per transaction.
+[94, 1024*T], one thread block per transaction. The standalone Schnorr
+and merkle-update traces (`build_trace_sig`, `build_trace_mu`; JAX
+`build_trace_device_sig`/`_mu`) are column and row cuts of its output.
 
 `build_trace_plain` is that kernel's plain PyTorch version, a port of
 certificate_stark_tpu/models/trace_np.py `build_trace_np`: one step loop
@@ -22,47 +24,128 @@ from . import schnorr as SC
 from . import transaction as TX
 
 
-def pack_witness(md, messages, device):
-    """TxMetadata + messages -> (inputs, consts) of ops/kernels.py
-    `transaction_trace`: Montgomery field values, 0/1 bits as int64."""
-    depth = md.depth
-    txs = md.tx_dicts()
-    rows = {name: [] for name, _ in K.TRACE_INPUTS}
-    for t, msg, sig in zip(txs, messages, md.signatures):
+_BITS = ("path_bits", "sbits", "hbits", "dbits", "gbits")
+
+
+def _tensors(rows, device):
+    """Per-input host rows -> the tensors of TRACE_INPUTS: Montgomery field
+    values, 0/1 bits as int64."""
+    return {name: (torch.tensor(v, dtype=torch.int64, device=device)
+                   if name in _BITS else F.from_ints(v, device))
+            for name, v in rows.items()}
+
+
+def _consts(device):
+    mds, _, ark = R.tables(device)
+    return dict(gen12=F.from_ints(SC._gen12(), device),
+                b3=F.from_ints(CV.B3_LIMBS, device), mds=mds, ark=ark)
+
+
+def _zeros(T, depth, names, device):
+    """Zero inputs of TRACE_INPUTS for the lanes a sub-trace never reads."""
+    return {name: torch.zeros((T,) + tuple(depth if s == "d" else s
+                                           for s in shape),
+                              dtype=torch.int64, device=device)
+            for name, shape in K.TRACE_INPUTS if name in names}
+
+
+def _sig_rows(messages, signatures):
+    """The Schnorr lanes' host rows: pkey, rx, sbits, hbits, msg."""
+    rows = {name: [] for name in ("pkey", "rx", "sbits", "hbits", "msg")}
+    for msg, sig in zip(messages, signatures):
         pk, s_bits, h_bits = SC.build_sig_info(msg, sig)
-        sigma = (t["s_old"][12] - t["delta"]) % F.P
-        rows["init"].append(TX.init_row(t))
-        rows["sibs"].append([[list(t[key][lvl + 1]) for lvl in range(depth)]
-                             for key in ("s_path", "r_path")])
-        rows["path_bits"].append([[(t[key] >> lvl) & 1
-                                   for lvl in range(depth)]
-                                  for key in ("s_idx", "r_idx")])
         rows["pkey"].append(pk)
         rows["rx"].append([int(v) % F.P for v in sig[0]])
         rows["sbits"].append(s_bits)
         rows["hbits"].append(h_bits)
         rows["msg"].append([[int(v) % F.P for v in msg[7 * k:7 * k + 7]]
                             for k in range(4)])
-        rows["dbits"].append([(t["delta"] >> i) & 1 for i in range(64)])
-        rows["gbits"].append([(sigma >> i) & 1 for i in range(64)])
-    bits = ("path_bits", "sbits", "hbits", "dbits", "gbits")
-    inputs = {name: (torch.tensor(v, dtype=torch.int64, device=device)
-                     if name in bits else F.from_ints(v, device))
-              for name, v in rows.items()}
-    mds, _, ark = R.tables(device)
-    consts = dict(gen12=F.from_ints(SC._gen12(), device),
-                  b3=F.from_ints(CV.B3_LIMBS, device), mds=mds, ark=ark)
-    return inputs, consts
+    return rows
+
+
+def _merkle_rows(txs, depth):
+    """The Merkle lane's host rows: init, sibs, path_bits."""
+    rows = {name: [] for name in ("init", "sibs", "path_bits")}
+    for t in txs:
+        rows["init"].append(TX.init_row(t))
+        rows["sibs"].append([[list(t[key][lvl + 1]) for lvl in range(depth)]
+                             for key in ("s_path", "r_path")])
+        rows["path_bits"].append([[(t[key] >> lvl) & 1
+                                   for lvl in range(depth)]
+                                  for key in ("s_idx", "r_idx")])
+    return rows
+
+
+def pack_witness(md, messages, device):
+    """TxMetadata + messages -> (inputs, consts) of ops/kernels.py
+    `transaction_trace`."""
+    txs = md.tx_dicts()
+    rows = _merkle_rows(txs, md.depth)
+    rows.update(_sig_rows(messages, md.signatures))
+    rows["dbits"] = [[(t["delta"] >> i) & 1 for i in range(64)] for t in txs]
+    rows["gbits"] = [[(((t["s_old"][12] - t["delta"]) % F.P) >> i) & 1
+                      for i in range(64)] for t in txs]
+    return _tensors(rows, device), _consts(device)
+
+
+def _run(inputs, consts, depth) -> torch.Tensor:
+    """The trace kernel on the card; its plain version on the CPU or inside
+    `kernels.plain_versions()`."""
+    if K.use_plain(inputs["init"]):
+        return build_trace_plain(inputs, consts, depth)
+    return K.transaction_trace(inputs, consts, depth)
 
 
 def build_trace(md, messages, device) -> torch.Tensor:
-    """The Montgomery trace [94, 1024*T] on `device`: the trace kernel on
-    the card, its plain version on the CPU or inside
-    `kernels.plain_versions()`."""
+    """The Montgomery trace [94, 1024*T] on `device`."""
     inputs, consts = pack_witness(md, messages, device)
-    if K.use_plain(inputs["init"]):
-        return build_trace_plain(inputs, consts, md.depth)
-    return K.transaction_trace(inputs, consts, md.depth)
+    return _run(inputs, consts, md.depth)
+
+
+# The standalone Schnorr (56 columns) and merkle-update (65 columns)
+# register maps are exact column subsets of the composed window
+# (constants.rs shares the maps), so their traces are cuts of the trace
+# kernel's output, with zero inputs for the lanes they do not read.
+def pack_sig(messages, signatures, device):
+    """(inputs, consts) of `transaction_trace` at depth 1 for the standalone
+    Schnorr trace: the Schnorr lanes' inputs, zeros for the others."""
+    inputs = _tensors(_sig_rows(messages, signatures), device)
+    inputs.update(_zeros(len(signatures), 1, ("init", "sibs", "path_bits",
+                                              "dbits", "gbits"), device))
+    return inputs, _consts(device)
+
+
+def build_trace_sig(messages, signatures, device) -> torch.Tensor:
+    """Standalone Schnorr trace [56, 512*N]: columns 0..55 of rows
+    512..1023 of each composed window (the composed AIR's step 511 zeroes
+    columns 0..57 before the Schnorr window starts, so the Merkle half
+    never reaches them). Equal to schnorr.sig_rows."""
+    T = len(signatures)
+    out = _run(*pack_sig(messages, signatures, device), 1)
+    return out.view(TX.TRACE_WIDTH, T, TX.CYCLE)[:SC.TRACE_WIDTH, :, 512:] \
+        .reshape(SC.TRACE_WIDTH, T * SC.SIG_CYCLE)
+
+
+def pack_mu(txs, depth, device):
+    """(inputs, consts) of `transaction_trace` for the standalone
+    merkle-update trace: the Merkle lane's inputs, zeros for the others."""
+    inputs = _tensors(_merkle_rows(txs, depth), device)
+    inputs.update(_zeros(len(txs), depth, ("pkey", "rx", "sbits", "hbits",
+                                           "msg", "dbits", "gbits"), device))
+    return inputs, _consts(device)
+
+
+def build_trace_mu(txs, depth, device) -> torch.Tensor:
+    """Standalone merkle-update trace [65, 512*T]: columns 0..64 of rows
+    0..511 of each composed window, with the index-bit registers set to
+    one at global row 1 (update/prover.rs:72-77). Equal to
+    merkle_update.tx_rows plus that hack."""
+    T = len(txs)
+    out = _run(*pack_mu(txs, depth, device), depth)
+    out = out.view(TX.TRACE_WIDTH, T, TX.CYCLE)[:MU.TRACE_WIDTH, :, :512] \
+        .reshape(MU.TRACE_WIDTH, T * MU.CYCLE)
+    out[[MU.S_BIT, MU.R_BIT], 1] = F.const(1, device)
+    return out
 
 
 def _rescue_round(st, r, mds, ark):

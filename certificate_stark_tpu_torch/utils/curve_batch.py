@@ -19,6 +19,7 @@ from . import field_ref as FR
 _COMB_W = 4
 _COMB_WINDOWS = 64           # covers 256-bit scalars
 _COMB = {}                   # curve name -> [win][j-1] affine j*2^(4win)*G
+IDENTITY18 = (0,) * 6 + (1,) + (0,) * 11     # projective identity (0:1:0)
 
 
 def _batch_affine(projs):
@@ -71,23 +72,37 @@ def _comb_table():
     return tbl
 
 
+def multiples(pt12, m):
+    """[j * pt for j = 1..m] as affine 12-limb lists, for an affine point of
+    order above m."""
+    one6 = FR.f6_to_limbs(FR.f6_scalar(1))
+    projs = [list(pt12) + one6]
+    for _ in range(m - 1):
+        projs.append(ER.compute_add_mixed(projs[-1], pt12))
+    return _batch_affine(projs)
+
+
+def mul_gen_proj(k):
+    """k * G as a projective 18-limb point through the comb table (k is
+    taken mod the group order; 0 gives the identity)."""
+    tbl = _comb_table()
+    k = int(k) % CV.SCALAR_Q
+    acc = list(IDENTITY18)
+    for w in range(_COMB_WINDOWS):
+        j = (k >> (_COMB_W * w)) & 15
+        if j:
+            acc = ER.compute_add_mixed(acc, tbl[w][j - 1])
+        if (k >> (_COMB_W * (w + 1))) == 0:
+            break
+    return acc
+
+
 def batch_mul_gen(scalars):
-    """[k_0..k_{T-1}] -> affine points [T][12 limbs] of k_i * G."""
+    """[k_0..k_{T-1}] -> affine points [T][12 limbs] of k_i * G, k_i in
+    [1, Q)."""
     if not scalars:
         return []
-    tbl = _comb_table()
-    outs = []
-    for k in scalars:
-        k = int(k)
-        acc = [0] * 6 + [1] + [0] * 11        # projective identity (0:1:0)
-        for w in range(_COMB_WINDOWS):
-            j = (k >> (_COMB_W * w)) & 15
-            if j:
-                acc = ER.compute_add_mixed(acc, tbl[w][j - 1])
-            if (k >> (_COMB_W * (w + 1))) == 0:
-                break
-        outs.append(acc)
-    return _batch_affine(outs)
+    return _batch_affine([mul_gen_proj(k) for k in scalars])
 
 
 def batch_pkeys(skeys):

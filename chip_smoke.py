@@ -23,7 +23,14 @@ quadratic with Rescue grinding, and the transaction proofs from
 tests/vectors/torch_goldens.json), the port's verifier accepts the
 chain-1024 and 128-transaction base proofs, and chain 8192 and the base and
 cubic 128-transaction proofs are proven once more with the plain versions,
-which must give the same bytes. Any mismatch raises. Prints a `kernels`
+which must give the same bytes. The standalone AIRs (range, merkle-init,
+merkle-update, Schnorr) reproduce their goldens, and run at the
+reference's benchmark sizes with bench.py's options (range 64-bit,
+merkle-init, merkle-update at 128 transactions depth 15 and Schnorr at 128
+signatures, the last two traced by the trace kernel): each timed by phase,
+verified by the port's verifier (a wrong public input rejected), the two
+128-unit ones also main paths with their own launch counts, profiled and
+proven with the plain versions (equal bytes). Any mismatch raises. Prints a `kernels`
 JSON line, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when there is
 no CUDA device or no port beside it.
@@ -113,6 +120,19 @@ CHAIN16_GOLDENS = {
         grinding_bits=4)),
     "rescue_chain16_quadratic_rescue_grind11": ("torch_goldens.json", None),
 }
+# the standalone AIRs' goldens: name -> (vector file, options where the
+# file does not hold them); and the unit count of their 128-unit paths
+SUBAIR_GOLDENS = {
+    "range_64bit": ("transcripts.json", dict(num_queries=14, blowup=8,
+                                             hash_fn="blake3")),
+    "range_64bit_rescue": ("torch_goldens.json", None),
+    "merkle_init_rescue": ("torch_goldens.json", None),
+    "merkle_update_1tx_d3_blake3": ("torch_goldens.json", None),
+    "merkle_update_16tx_d15_blake3": ("torch_goldens.json", None),
+    "schnorr_2sig_blake3": ("torch_goldens.json", None),
+    "schnorr_16sig_blake3": ("torch_goldens.json", None),
+}
+SUBAIR_UNITS = 128
 # the example CLI's defaults (certificate_stark_tpu_torch/examples/
 # state_transition.py): bench.py's options over the cubic extension
 CLI_OPTS = dict(BENCH_OPTS, extension_degree=3)
@@ -938,11 +958,16 @@ def phase_tx_goldens(dev):
         log(f"  {name}: {time.perf_counter() - t0:.1f} s with the witness")
 
 
-def phase_tx_full(dev, ex, what="bench options"):
-    """The composed AIR at 128 transactions, depth 15, with ex.options
-    (bench.py's, or the example CLI's cubic ones): warm-up, then the
-    counted and timed main-path run, the trace build included as bench.py
-    times it."""
+TX_KERNELS = ("f63_mul", "blake3_leaves", "blake3_merge", "transaction_trace")
+
+
+def _timed_proof(dev, ex, what, need):
+    """ex.options' proof of ex's statement: warm-up, then the counted and
+    timed main-path run, the trace build (`ex.trace`) included, on a
+    Prover built before the timed window; then one `ex.prove()`, timed as
+    bench.py and benches.py time it (a new Prover each call, its set-up
+    included). Checks that every kernel in `need` was launched; returns
+    (prover, proof bytes, launches)."""
     from certificate_stark_tpu_torch.engine.prover import Prover
     from certificate_stark_tpu_torch.ops import kernels as K
     t0 = time.perf_counter()
@@ -971,20 +996,33 @@ def phase_tx_full(dev, ex, what="bench options"):
     launches = {fn.__name__: fn.launches for fn in K.WRAPPERS}
     peak = torch.cuda.max_memory_allocated()
     raw = proof.to_bytes()
-    log(f"{TX_COUNT} tx depth {TX_DEPTH}, {what}: prove wall (trace build "
-        f"included) {wall * 1e3:.1f} ms; prover set-up {setup_ms:.1f} ms")
+    log(f"{what}: prove wall (trace build included) {wall * 1e3:.1f} ms; "
+        f"prover set-up {setup_ms:.1f} ms")
     for label, ms in spans:
         log(f"  {label:32s} {ms:10.1f} ms")
     log(f"  peak device memory {peak / 2**20:.0f} MiB; kernel launches "
         f"{launches}")
-    for name in ("f63_mul", "blake3_leaves", "blake3_merge",
-                 "transaction_trace"):
-        check(launches[name] > 0, f"{name} was not launched on the "
-              "transaction main path")
+    for name in need:
+        check(launches[name] > 0, f"{name} was not launched on the main "
+              f"path ({what})")
     check(raw == warm, "two proofs of the same statement differ")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = ex.prove().to_bytes()
+    torch.cuda.synchronize()
+    log(f"  ex.prove() wall (set-up and trace build included, as bench.py "
+        f"times it) {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    check(again == raw, "ex.prove() differs from the main-path proof")
     log(f"  proof {len(raw)} B, sha256 {hashlib.sha256(raw).hexdigest()[:16]}"
         f"..., security {proof.security_level()} bits")
     return prover, raw, launches
+
+
+def phase_tx_full(dev, ex, what="bench options"):
+    """The composed AIR at 128 transactions, depth 15, with ex.options
+    (bench.py's, or the example CLI's cubic ones)."""
+    return _timed_proof(dev, ex, f"{TX_COUNT} tx depth {TX_DEPTH}, {what}",
+                        TX_KERNELS)
 
 
 def phase_verify(ex, raw, what):
@@ -1037,8 +1075,8 @@ def _device_by_name(prof):
 
 
 def profile_tx_proof(ex, prover, what):
-    """One warm 128-transaction proof (trace build included) under
-    torch.profiler: device time by kernel, busy share of the wall time."""
+    """One warm proof (trace build included) under torch.profiler: device
+    time by kernel, busy share of the wall time. `what` names the path."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1047,7 +1085,7 @@ def profile_tx_proof(ex, prover, what):
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = _device_by_name(prof)
     device_ms = sum(t for t, _ in by_name.values())
-    log(f"profile, {TX_COUNT} tx warm proof, {what} (trace build "
+    log(f"profile, {what} warm proof (trace build "
         f"included): wall {wall_ms:.1f} ms, device busy {device_ms:.1f} ms "
         f"({100 * device_ms / wall_ms:.1f}%), "
         f"{sum(c for _, c in by_name.values())} kernel launches")
@@ -1069,7 +1107,7 @@ def phase_tx_profile(dev, ex, prover):
     then the constraint evaluation alone: its launches and device time."""
     from torch.profiler import ProfilerActivity, profile
     from certificate_stark_tpu_torch.engine.fieldops import BASE
-    profile_tx_proof(ex, prover, "bench options")
+    profile_tx_proof(ex, prover, f"{TX_COUNT} tx, bench options")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         trace = ex.trace
         torch.cuda.synchronize()
@@ -1093,9 +1131,9 @@ def phase_tx_profile(dev, ex, prover):
         f"(f63_mul {sum(c for n, (_, c) in ev.items() if 'f63_mul' in n)})")
 
 
-def phase_tx_plain(dev, ex, kernel_raw, what="bench options"):
-    """The 128-transaction proof with the plain versions, trace build
-    included: the same bytes as with the kernels."""
+def _plain_equal(dev, ex, kernel_raw, what):
+    """ex's proof with the plain versions, trace build included: the same
+    bytes as with the kernels."""
     from certificate_stark_tpu_torch.engine.prover import Prover
     from certificate_stark_tpu_torch.ops import kernels as K
     torch.cuda.synchronize()
@@ -1104,13 +1142,157 @@ def phase_tx_plain(dev, ex, kernel_raw, what="bench options"):
         prover = Prover(ex.air(), device=dev)
         raw = prover.prove(ex.trace).to_bytes()
     torch.cuda.synchronize()
-    log(f"{TX_COUNT} tx, {what}: prove with plain versions (trace build "
-        f"and prover set-up included): "
+    log(f"{what}: prove with plain versions (trace build and prover set-up "
+        f"included): {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    check(raw == kernel_raw, f"{what}: the proof with kernels differs from "
+          "the plain one")
+    log(f"{what}: proofs with kernels and with plain versions are equal, "
+        f"sha256 {hashlib.sha256(raw).hexdigest()[:16]}...")
+
+
+def phase_tx_plain(dev, ex, kernel_raw, what="bench options"):
+    """The 128-transaction proof with the plain versions."""
+    _plain_equal(dev, ex, kernel_raw, f"{TX_COUNT} tx, {what}")
+
+
+def _subair_example(name, golden, opts, dev):
+    """The port's example of one standalone-AIR golden's statement."""
+    from certificate_stark_tpu_torch.models import merkle_init as MI
+    from certificate_stark_tpu_torch.models import merkle_update as MU
+    from certificate_stark_tpu_torch.models import range as RG
+    from certificate_stark_tpu_torch.models import schnorr as SC
+    if name.startswith("range"):
+        return RG.RangeExample(golden.get("number", 0x0123456789ABCDEF), opts,
+                               device=dev)
+    if name.startswith("merkle_init"):
+        return MI.MerkleInitExample(opts, device=dev)
+    if name.startswith("merkle_update"):
+        return MU.MerkleUpdateExample(golden["num_transactions"], opts,
+                                      depth=golden["depth"],
+                                      seed=golden["seed"], device=dev)
+    return SC.SchnorrExample(golden["num_signatures"], opts,
+                             seed=golden["seed"], device=dev)
+
+
+def phase_subair_goldens(dev):
+    """The standalone AIRs' goldens reproduced on the card: trace (where
+    the golden records it), public roots, coin journal and proof bytes."""
+    from certificate_stark_tpu_torch.engine.options import ProofOptions
+    from certificate_stark_tpu_torch.engine.prover import Prover
+    from certificate_stark_tpu_torch.utils import curve as CV
+    CV.set_curve("fp2")
+    for name, (path, od) in SUBAIR_GOLDENS.items():
+        with open(os.path.join(ROOT, "tests", "vectors", path)) as f:
+            g = json.load(f)[name]
+        t0 = time.perf_counter()
+        ex = _subair_example(name, g, ProofOptions(**(od or g["options"])),
+                             dev)
+        if "initial_root" in g:
+            check([list(r) for r in ex.pub_inputs()] ==
+                  [g["initial_root"], g["final_root"]], f"{name}: roots differ")
+        trace = ex.trace
+        if "trace_sha256" in g:
+            check(_trace_sha(trace) == g["trace_sha256"],
+                  f"{name}: trace differs")
+        prover = Prover(ex.air(), device=dev)
+        prover.coin_journal = []
+        _golden_check(name, g, prover, prover.prove(trace))
+        log(f"  {name}: {time.perf_counter() - t0:.1f} s with the witness")
+
+
+def phase_verify_pub(ex, raw, what):
+    """The port's verifier accepts the proof `raw` of ex's statement,
+    timed, and rejects it against a wrong public input: the number negated,
+    delta doubled, a final-root element or a message element changed."""
+    from certificate_stark_tpu_torch.engine.proof import Proof
+    from certificate_stark_tpu_torch.engine.verifier import VerificationError
+    from certificate_stark_tpu_torch.ops.field import P
+    t0 = time.perf_counter()
+    check(ex.verify(Proof.from_bytes(raw)) is True,
+          f"{what}: the port's verifier rejects the proof")
+    log(f"{what}: the port's verifier accepts it in "
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
-    check(raw == kernel_raw, f"{TX_COUNT} tx, {what}: the proof with kernels "
-          "differs from the plain one")
-    log(f"{TX_COUNT} tx, {what}: proofs with kernels and with plain versions "
-        f"are equal, sha256 {hashlib.sha256(raw).hexdigest()[:16]}...")
+    if hasattr(ex, "number"):
+        wrong = dict(number=(-ex.number) % P)
+    elif hasattr(ex, "delta"):
+        wrong = dict(pub_inputs=(ex.s_inputs, ex.r_inputs, 2 * ex.delta))
+    elif hasattr(ex, "md"):
+        initial, final = ex.pub_inputs()
+        wrong = dict(pub_inputs=(initial, [(final[0] + 1) % P] + final[1:]))
+    else:
+        messages = [list(m) for m in ex.messages]
+        messages[0][13] = (messages[0][13] + 1) % P
+        wrong = dict(pub_inputs=(messages, ex.signatures))
+    try:
+        ex.verify(Proof.from_bytes(raw), **wrong)
+    except VerificationError as e:
+        log(f"  {what}, a wrong public input: rejected ({str(e)[:40]})")
+    else:
+        check(False, f"{what}: a wrong public input passes")
+
+
+def phase_subairs(dev):
+    """The reference's other benchmark groups at its sizes and bench.py's
+    options (benches.py --full): range 64-bit, merkle-init, merkle-update
+    at 128 transactions depth 15, Schnorr at 128 signatures. Each: the
+    witness time, the main-path run (_timed_proof), the port's verifier
+    (timed; a wrong public input rejected); the two 128-unit paths are also
+    profiled, the trace kernel timed on their inputs, and proven with the
+    plain versions (equal bytes). Returns the launch counts and the trace
+    kernel's times of the two 128-unit paths."""
+    from certificate_stark_tpu_torch.engine.options import ProofOptions
+    from certificate_stark_tpu_torch.models import merkle_init as MI
+    from certificate_stark_tpu_torch.models import merkle_update as MU
+    from certificate_stark_tpu_torch.models import range as RG
+    from certificate_stark_tpu_torch.models import schnorr as SC
+    from certificate_stark_tpu_torch.utils import curve as CV
+    CV.set_curve("fp2")
+    opts = ProofOptions(**BENCH_OPTS)
+    number = 123456789123456789
+    paths = (
+        ("range 64-bit", lambda: RG.RangeExample(number, opts, device=dev),
+         None),
+        ("merkle-init", lambda: MI.MerkleInitExample(opts, device=dev), None),
+        (f"merkle-update {SUBAIR_UNITS} tx depth {TX_DEPTH}",
+         lambda: MU.MerkleUpdateExample(SUBAIR_UNITS, opts, depth=TX_DEPTH,
+                                        seed=1, device=dev),
+         "merkle_update128"),
+        (f"Schnorr {SUBAIR_UNITS} signatures",
+         lambda: SC.SchnorrExample(SUBAIR_UNITS, opts, seed=5, device=dev),
+         "schnorr128"))
+    launches, trace_ms = {}, {}
+    for what, make, key in paths:
+        t0 = time.perf_counter()
+        ex = make()
+        log(f"witness, {what} (host Python): "
+            f"{time.perf_counter() - t0:.1f} s")
+        need = TX_KERNELS if key else TX_KERNELS[:3]
+        prover, raw, counts = _timed_proof(dev, ex, what, need)
+        if key:
+            launches[key] = counts
+            trace_ms[key] = _subtrace_kernel_ms(ex, what)
+            profile_tx_proof(ex, prover, what)
+        phase_verify_pub(ex, raw, what)
+        if key:
+            _plain_equal(dev, ex, raw, what)
+    return launches, trace_ms
+
+
+def _subtrace_kernel_ms(ex, what):
+    """The trace kernel alone on a 128-unit path's packed inputs, timed
+    (CUDA events; the host packing and the cut are not included)."""
+    from certificate_stark_tpu_torch.models import trace_device as TD
+    from certificate_stark_tpu_torch.ops import kernels as K
+    if hasattr(ex, "md"):
+        depth = ex.depth
+        inputs, consts = TD.pack_mu(ex.md.tx_dicts(), depth, ex.device)
+    else:
+        depth = 1
+        inputs, consts = TD.pack_sig(ex.messages, ex.signatures, ex.device)
+    ms = cuda_ms(lambda: K.transaction_trace(inputs, consts, depth), 20)
+    log(f"{what}: transaction_trace on its inputs (depth {depth}): "
+        f"{ms:.4f} ms")
+    return ms
 
 
 def card_line():
@@ -1174,17 +1356,21 @@ def main():
     cli.options = ProofOptions(**CLI_OPTS)
     what = "cubic, BLAKE3 (the example CLI's defaults)"
     cli_prover, cli_raw, cli_launches = phase_tx_full(dev, cli, what)
-    profile_tx_proof(cli, cli_prover, what)
+    profile_tx_proof(cli, cli_prover, f"{TX_COUNT} tx, {what}")
     phase_verify(cli, cli_raw, f"{TX_COUNT} tx, {what}")
     phase_tx_plain(dev, cli, cli_raw, what)
+    phase_subair_goldens(dev)
+    sub_launches, sub_trace_ms = phase_subairs(dev)
     paths = {"chain1024": chain_launches, "tx128": tx_launches,
-             "tx128_cubic": cli_launches}
+             "tx128_cubic": cli_launches, **sub_launches}
     for row in rows:
         path = ("chain1024" if row["name"] == "rescue_permutation"
                 else "tx128_cubic")
         row["launches"] = paths[path][row["name"]]
         row["path"] = path
         row["launches_by_path"] = {p: n[row["name"]] for p, n in paths.items()}
+        if row["name"] == "transaction_trace":
+            row["ms_by_path"] = sub_trace_ms
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -28,8 +28,22 @@ compares; the CPU tests compare the two-transaction ones.
   transaction_16tx_d15_cubic_blake3_grind12
                                transaction_16tx_d15_blake3 over the cubic
                                extension with 12 bits of grinding
+  range_64bit_rescue           range proof of 123456789123456789 with the
+                               options of tests/test_range.py (14 queries,
+                               blowup 8, Rescue commitments)
+  merkle_init_rescue           the merkle-init example (all-zero inputs,
+                               delta 1), the same options
+  merkle_update_1tx_d3_blake3  merkle-update AIR, 1 transaction at depth 3,
+                               seed 1, 14 queries, blowup 8, BLAKE3
+  merkle_update_16tx_d15_blake3
+                               merkle-update AIR, 16 transactions at depth
+                               15, seed 1, the bench options
+  schnorr_2sig_blake3          Schnorr AIR, 2 signatures, seed 5, 14
+                               queries, blowup 8, BLAKE3
+  schnorr_16sig_blake3         Schnorr AIR, 16 signatures, seed 5, the bench
+                               options
 
-The transaction goldens use the fp2 curve instance (the library default).
+The transaction and Schnorr goldens use the fp2 curve instance (the library default).
 Run with JAX on the CPU; names select goldens (default: all), and the file
 keeps the entries not regenerated:
 
@@ -117,6 +131,76 @@ def transaction_golden(n_tx, depth, seed, od):
     return out
 
 
+def _trace_sha256(trace):
+    words = np.ascontiguousarray(F.pack_u64(np.asarray(trace)))  # [w, n]
+    return hashlib.sha256(words.astype("<u8").tobytes()).hexdigest()
+
+
+def _example_golden(ex, air, od, t0, witness_s, verify_kw=None):
+    """Prove `air` for the example's trace, verify with the example's own
+    verifier, and record the proof with the trace's SHA-256."""
+    p = PR.Prover(air)
+    p.coin_journal = []
+    t1 = time.time()
+    proof = p.prove(ex.trace)
+    prove_s = time.time() - t1
+    assert ex.verify(proof)
+    out = _record(od, p, proof, t0, prove_s)
+    out.update(trace_sha256=_trace_sha256(ex.trace),
+               cpu_witness_seconds=round(witness_s, 1))
+    return out
+
+
+def range_golden(number, od):
+    from certificate_stark_tpu.models import range as RG
+    opts = ProofOptions(**od)
+    t0 = time.time()
+    ex = RG.RangeExample(number, opts)
+    out = _example_golden(ex, RG.RangeAir(RG.RANGE_LOG, [number], opts), od,
+                          t0, time.time() - t0)
+    out.update(number=number)
+    return out
+
+
+def merkle_init_golden(od):
+    from certificate_stark_tpu.models import merkle_init as MI
+    opts = ProofOptions(**od)
+    t0 = time.time()
+    ex = MI.MerkleInitExample(opts)
+    return _example_golden(
+        ex, MI.MerkleInitAir(MI.CYCLE, ex.pub_inputs(), opts), od, t0,
+        time.time() - t0)
+
+
+def merkle_update_golden(n_tx, depth, seed, od):
+    from certificate_stark_tpu.models import merkle_update as MU
+    opts = ProofOptions(**od)
+    t0 = time.time()
+    ex = MU.MerkleUpdateExample(n_tx, opts, depth=depth, seed=seed)
+    witness_s = time.time() - t0
+    air = MU.MerkleUpdateAir(MU.CYCLE * n_tx, ex.pub_inputs(), opts,
+                             depth=depth)
+    out = _example_golden(ex, air, od, t0, witness_s)
+    out.update(num_transactions=n_tx, depth=depth, seed=seed,
+               initial_root=[int(v) for v in ex.pub_inputs()[0]],
+               final_root=[int(v) for v in ex.pub_inputs()[1]])
+    return out
+
+
+def schnorr_golden(n_sig, seed, od):
+    from certificate_stark_tpu.models import schnorr as SC
+    CV.set_curve("fp2")
+    opts = ProofOptions(**od)
+    t0 = time.time()
+    ex = SC.SchnorrExample(n_sig, opts, seed=seed)
+    witness_s = time.time() - t0
+    air = SC.SchnorrAir(SC.SIG_CYCLE * n_sig, ex.pub_inputs(), opts)
+    out = _example_golden(ex, air, od, t0, witness_s)
+    out.update(num_signatures=n_sig, seed=seed, curve="fp2",
+               s_values=[str(s) for _, s in ex.signatures])
+    return out
+
+
 GOLDENS = {
     f"rescue_chain{CHAIN}_rescue":
         lambda: chain_golden(CHAIN, dict(TX_TEST_OPTS, num_queries=42,
@@ -139,6 +223,19 @@ GOLDENS = {
         lambda: transaction_golden(16, 15, 42, dict(BENCH_OPTS,
                                                     extension_degree=3,
                                                     grinding_bits=12)),
+    "range_64bit_rescue":
+        lambda: range_golden(123456789123456789, TX_TEST_OPTS),
+    "merkle_init_rescue":
+        lambda: merkle_init_golden(TX_TEST_OPTS),
+    "merkle_update_1tx_d3_blake3":
+        lambda: merkle_update_golden(1, 3, 1, dict(TX_TEST_OPTS,
+                                                   hash_fn="blake3")),
+    "merkle_update_16tx_d15_blake3":
+        lambda: merkle_update_golden(16, 15, 1, BENCH_OPTS),
+    "schnorr_2sig_blake3":
+        lambda: schnorr_golden(2, 5, dict(TX_TEST_OPTS, hash_fn="blake3")),
+    "schnorr_16sig_blake3":
+        lambda: schnorr_golden(16, 5, BENCH_OPTS),
 }
 
 
