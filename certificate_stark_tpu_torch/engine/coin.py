@@ -3,14 +3,14 @@
 Counterpart of certificate_stark_tpu/engine/coin.py `RandomCoin`: the state
 is a digest of the hasher, reseeded with each commitment. Rescue mode: a
 draw hashes (state, counter) and reads out the first element. Byte mode
-(BLAKE3): a draw merges the state with the counter repeated digest_len
-times and reads 63-bit values from word pairs, rejecting those >= p; the
-proof-of-work bound is on the first 32-bit word. The optional journal
+(BLAKE3, SHA-256, SHA3-256): a draw merges the state with the counter
+repeated digest_len times and reads 63-bit values from word pairs,
+rejecting those >= p; the proof-of-work bound is on the first 32-bit word. The optional journal
 records every step, for the golden-transcript comparisons.
 
 Grinding above 10 bits searches nonces in increasing order in batches on
-the device (the JAX package's `_grind_device`): one BLAKE3 merge launch or
-one Rescue digest tests a batch, and the first hit is the host loop's
+the device (the JAX package's `_grind_device`): one merge launch of the byte
+hasher or one Rescue digest tests a batch, and the first hit is the host loop's
 answer whatever the batch size.
 """
 from __future__ import annotations
@@ -129,7 +129,7 @@ class RandomCoin:
             return lead < (1 << (63 - g))
         # byte hashers: the merge of the state words with the nonce word
         # repeated digest_len times (`host_merge`), a batch in one level
-        assert base + batch <= 1 << 32, "BLAKE3 nonces are 32-bit words"
+        assert base + batch <= 1 << 32, "byte-hasher nonces are 32-bit words"
         level = torch.empty((self.h.digest_len, 2 * batch), dtype=torch.int64,
                             device=dev)
         level[:, 0::2] = state[:, None]

@@ -1,8 +1,9 @@
 """Commitment hashers.
 
-Counterpart of certificate_stark_tpu/engine/hasher.py `RescueHasher` (the
-ProofOptions default) and `Blake3Hasher` (bench.py's). Device side: digests
-are int64 columns [digest_len, B]. Host side: Python ints, for the coin.
+Counterpart of certificate_stark_tpu/engine/hasher.py: `RescueHasher` (the
+ProofOptions default), `Blake3Hasher` (bench.py's and the example CLI's),
+`Sha256Hasher` and `Sha3Hasher`. Device side: digests are int64 columns
+[digest_len, B]. Host side: Python ints, for the coin.
 
   rescue  Rescue63 digests truncated to 4 elements (Montgomery on the
           device, standard form on the host).
@@ -10,10 +11,17 @@ are int64 columns [digest_len, B]. Host side: Python ints, for the coin.
           row's elements as 8-byte LE standard form, a merge the hash of the
           64 bytes left || right (the JAX package's `merge_pairs`, not
           BLAKE3's PARENT node). The device side is csrc/blake3.cu.
+  sha256  SHA-256 digests as 8 u32 BE words (the SHA spec's words); a leaf
+          is the hash of its row's 8-byte LE standard-form elements, a merge
+          the hash of the 64 bytes of left || right as BE words. The device
+          side is csrc/sha256.cu.
+  sha3    SHA3-256 digests as 8 u32 LE words, leaves and merges as for
+          BLAKE3. The device side is csrc/sha3.cu.
 """
 from __future__ import annotations
 
 from ..ops import blake3 as B3, field as F, kernels as K, rescue as R
+from ..ops import sha256 as S2, sha3 as S3
 from ..utils import rescue_ref as RR
 
 
@@ -44,22 +52,24 @@ class RescueHasher:
         return tuple(RR.merge4(list(d0), list(d1)))
 
 
-class Blake3Hasher:
-    name = "blake3"
+class _ByteHasher:
+    """A hasher of bytes: digests of 8 u32 words, whose byte order is the
+    hash's (`_order`). The device side runs the leaf and merge kernels
+    (`_leaves`, `_merge`) or their plain versions."""
     digest_len = 8  # u32 words
 
     # -- device ------------------------------------------------------------
     def hash_columns(self, cols):
         """cols: [k, B] Montgomery -> [8, B] digest words."""
         if K.use_plain(cols):
-            return K.blake3_leaves_plain(cols)
-        return K.blake3_leaves(cols.contiguous())
+            return self._leaves_plain(cols)
+        return self._leaves(cols.contiguous())
 
     def merge_pairs(self, level):
         """level: [8, 2m] -> [8, m] by hashing adjacent pairs."""
         if K.use_plain(level):
-            return K.blake3_merge_plain(level)
-        return K.blake3_merge(level.contiguous())
+            return self._merge_plain(level)
+        return self._merge(level.contiguous())
 
     @staticmethod
     def to_host(cols) -> list:
@@ -68,19 +78,49 @@ class Blake3Hasher:
 
     # -- host --------------------------------------------------------------
     def host_digest(self, elements) -> tuple:
-        return B3.digest_words(b"".join(
+        return self._bytes(b"".join(
             (int(e) % F.P).to_bytes(8, "little") for e in elements))
 
     def host_merge(self, d0, d1) -> tuple:
-        return B3.digest_words(b"".join(
-            int(w).to_bytes(4, "little") for w in tuple(d0) + tuple(d1)))
+        return self._bytes(b"".join(
+            int(w).to_bytes(4, self._order) for w in tuple(d0) + tuple(d1)))
 
 
-HASHERS = {"rescue": RescueHasher, "blake3": Blake3Hasher}
+class Blake3Hasher(_ByteHasher):
+    name = "blake3"
+    _order = "little"
+    _leaves = staticmethod(K.blake3_leaves)
+    _merge = staticmethod(K.blake3_merge)
+    _leaves_plain = staticmethod(K.blake3_leaves_plain)
+    _merge_plain = staticmethod(K.blake3_merge_plain)
+    _bytes = staticmethod(B3.digest_words)
+
+
+class Sha256Hasher(_ByteHasher):
+    name = "sha256"
+    _order = "big"
+    _leaves = staticmethod(K.sha256_leaves)
+    _merge = staticmethod(K.sha256_merge)
+    _leaves_plain = staticmethod(K.sha256_leaves_plain)
+    _merge_plain = staticmethod(K.sha256_merge_plain)
+    _bytes = staticmethod(S2.digest_words)
+
+
+class Sha3Hasher(_ByteHasher):
+    name = "sha3"
+    _order = "little"
+    _leaves = staticmethod(K.sha3_leaves)
+    _merge = staticmethod(K.sha3_merge)
+    _leaves_plain = staticmethod(K.sha3_leaves_plain)
+    _merge_plain = staticmethod(K.sha3_merge_plain)
+    _bytes = staticmethod(S3.digest_words)
+
+
+HASHERS = {"rescue": RescueHasher, "sha256": Sha256Hasher,
+           "blake3": Blake3Hasher, "sha3": Sha3Hasher}
 
 
 def get_hasher(name: str):
     if name not in HASHERS:
-        raise NotImplementedError(
-            f"hash_fn={name!r}: the port commits with {sorted(HASHERS)}")
+        raise ValueError(f"hash_fn={name!r}: choices {sorted(HASHERS)}")
     return HASHERS[name]()

@@ -1,9 +1,9 @@
 """Proof options, a copy of certificate_stark_tpu/engine/options.py — mirrors
 the reference's 7-arg `ProofOptions::new(queries, blowup, grinding, hash,
 extension, fri_folding, fri_max_remainder)` (src/lib.rs:78-86; defaults 42,
-8, 0, Blake3, None, 4, 256). The port commits with hash_fn "rescue" or
-"blake3" (engine/hasher.py raises for the others) over the base field or its
-quadratic or cubic extension."""
+8, 0, Blake3, None, 4, 256). The port commits with every hash_fn of the JAX
+package ("rescue", "sha256", "blake3", "sha3"; engine/hasher.py) over the
+base field or its quadratic or cubic extension."""
 from __future__ import annotations
 
 from dataclasses import dataclass

@@ -5,7 +5,10 @@ Counterpart of certificate_stark_tpu/engine/prover.py `Prover.prove`
 evaluation and composition -> composition commitment -> OOD frame -> DEEP
 composition -> FRI layers -> grinding -> query openings. The device arrays
 are int64 tensors of Montgomery values; the host runs the public coin between
-phases and assembles the proof.
+phases and assembles the proof. With a checkpoint (`Prover.checkpointer`,
+engine/checkpoint.py) each phase's tensors are saved, and a phase found in
+the checkpoint is read instead of computed, with the JAX package's phase
+keys (:1157-1349; the port has no packed LDE, so no `packed` key).
 
 The trace and the constraint evaluations are base-field values. From the
 composition on, the data lives in the extension of degree d
@@ -175,18 +178,46 @@ class Prover:
         return XF.from_ints([coin.draw_ext(self.d) for _ in range(count)],
                             self.d, self.device)
 
-    def prove(self, trace: torch.Tensor, mark=None) -> Proof:
+    def checkpointer(self, directory: str):
+        """A phase Checkpointer bound to this proving context (the AIR,
+        its shape, the options, the public inputs and the hasher), for
+        `prove(..., checkpoint=...)`."""
+        from .checkpoint import Checkpointer
+        ctx = [type(self.air).__name__, self.w, self.n,
+               self.opts.context_elements(self.w, self.n),
+               self.air.pub_inputs_elements(), self.hasher.name]
+        return Checkpointer(directory, context=ctx, device=self.device)
+
+    def prove(self, trace: torch.Tensor, mark=None, checkpoint=None) -> Proof:
         """Prove the AIR's statement for `trace` [w, n] (Montgomery int64
         on the prover's device). `mark(label)`, when given, is called at
-        every phase boundary (chip_smoke.py times the phases with it)."""
+        every phase boundary (chip_smoke.py times the phases with it).
+
+        With a `checkpoint` (self.checkpointer(directory)), each phase
+        saves its device tensors under its key (trace, composition, deep,
+        fri0, fri1, ..., pow), and a phase whose artifact the directory
+        holds for this context is not computed again: its tensors come
+        from the file, and the coin is replayed from the restored roots.
+        The proof is the same bytes either way."""
         air, opts, hasher = self.air, self.opts, self.hasher
         n, w, bn, k, d = self.n, self.w, self.bn, self.k, self.d
         assert tuple(trace.shape) == (w, n) and trace.device == self.device
         mark = mark or (lambda label: None)
+        ck = checkpoint
 
-        trace_coeffs, lde = self.phase_trace(trace)
-        mark("trace LDE")
-        trace_tree = self.commit(lde)
+        data = ck.load("trace") if ck else None
+        if data is not None:
+            del trace             # every value comes from the checkpoint
+            trace_coeffs, lde = data["trace_coeffs"], data["lde"]
+            trace_tree = M.MerkleTree(hasher, ck.unpack_levels(data))
+            mark("trace LDE")
+        else:
+            trace_coeffs, lde = self.phase_trace(trace)
+            mark("trace LDE")
+            trace_tree = self.commit(lde)
+            if ck:
+                ck.save_levels("trace", {"trace_coeffs": trace_coeffs,
+                                         "lde": lde}, trace_tree.levels)
         coin = RandomCoin(hasher, opts.context_elements(w, n)
                           + air.pub_inputs_elements(),
                           journal=self.coin_journal)
@@ -196,22 +227,43 @@ class Prover:
         nc, nb = len(self.degrees), len(self.assertions)
         t_alpha, t_beta = self._draw(coin, nc), self._draw(coin, nc)
         b_alpha, b_beta = self._draw(coin, nb), self._draw(coin, nb)
-        h_coeffs, h_lde = self.phase_composition(lde, t_alpha, t_beta,
-                                                 b_alpha, b_beta)
+        data = ck.load("composition") if ck else None
+        if data is not None:
+            h_coeffs, h_lde = data["h_coeffs"], data["h_lde"]
+            h_levels = ck.unpack_levels(data)
+        else:
+            h_coeffs, h_lde = self.phase_composition(lde, t_alpha, t_beta,
+                                                     b_alpha, b_beta)
         mark("constraint eval + composition")
         # committed rows: column i's d coordinates at rows i*d .. i*d + d-1
         h_rows = h_lde.transpose(0, 1).reshape(k * d, bn)
-        h_tree = self.commit(h_rows)
+        if data is not None:
+            h_tree = M.MerkleTree(hasher, h_levels)
+        else:
+            h_tree = self.commit(h_rows)
+            if ck:
+                ck.save_levels("composition", {"h_coeffs": h_coeffs,
+                                               "h_lde": h_lde}, h_tree.levels)
         coin.reseed(h_tree.root())
         mark("composition commit")
 
         z = F.from_ints(coin.draw_ext(d), self.device)
-        oods = self.phase_ood(trace_coeffs, h_coeffs, z)
+        data = ck.load("deep") if ck else None
+        if data is not None:
+            oods = data["ood_z"], data["ood_zg"], data["ood_h"]
+        else:
+            oods = self.phase_ood(trace_coeffs, h_coeffs, z)
         ood_z, ood_zg, ood_h = (XF.flat_ints(o) for o in oods)
         coin.reseed(hasher.host_digest(ood_z + ood_zg + ood_h))
         g_z, g_zg, g_h = (self._draw(coin, w), self._draw(coin, w),
                           self._draw(coin, k))
-        deep = self.phase_deep(lde, h_lde, *oods, g_z, g_zg, g_h, z)
+        if data is not None:
+            deep = data["deep"]
+        else:
+            deep = self.phase_deep(lde, h_lde, *oods, g_z, g_zg, g_h, z)
+            if ck:
+                ck.save("deep", ood_z=oods[0], ood_zg=oods[1], ood_h=oods[2],
+                        deep=deep)
         mark("OOD + DEEP")
 
         fri_layers = []
@@ -219,8 +271,16 @@ class Prover:
         size, o, gw = bn, self.offset, self.gen_big
         fold = opts.fri_folding
         while size > opts.fri_max_remainder:
-            rows = FRI.leaf_rows(cur, fold)
-            tree = self.commit(rows)
+            key = f"fri{len(fri_layers)}"
+            data = ck.load(key) if ck else None
+            if data is not None:
+                rows = data["group"]
+                tree = M.MerkleTree(hasher, ck.unpack_levels(data))
+            else:
+                rows = FRI.leaf_rows(cur, fold)
+                tree = self.commit(rows)
+                if ck:
+                    ck.save_levels(key, {"group": rows}, tree.levels)
             coin.reseed(tree.root())
             xi = F.from_ints(coin.draw_ext(d), self.device)
             cur = FRI.fold(cur, xi, o, gw, fold)
@@ -232,7 +292,13 @@ class Prover:
         coin.reseed(hasher.host_digest(remainder))
         mark("FRI layers")
 
-        nonce = coin.grind(opts.grinding_bits, device=self.device)
+        data = ck.load("pow") if ck else None
+        if data is not None:
+            nonce = int(data["nonce"])
+        else:
+            nonce = coin.grind(opts.grinding_bits, device=self.device)
+            if ck:
+                ck.save("pow", nonce=nonce)
         coin.reseed(hasher.host_digest([nonce]))
         positions = coin.draw_indices(opts.num_queries, bn)
         leaf_idxs, p_cur = [], list(positions)

@@ -3,11 +3,13 @@ examples/state_transition.py (the reference's examples/state-transition.rs
 flags), proving on the GPU and verifying with the port's verifier.
 
     python -m certificate_stark_tpu_torch.examples.state_transition -n 128
+    python -m certificate_stark_tpu_torch.examples.state_transition -n 128 \\
+        --hash-fn sha3
     python -m certificate_stark_tpu_torch.examples.state_transition \\
         -n 2 --depth 3 --device cpu
 
 Flags: -n/--num-transactions, -q/--queries, -b/--blowup, -g/--grinding,
---hash-fn (the port commits with rescue and blake3; sha256 and sha3 raise),
+--hash-fn (rescue, sha256, blake3 or sha3, each with its kernels),
 -e/--extension (1, 2, 3), -f/--fri-folding, --depth (the reference fixes
 15), -v/--verbose (per-phase prover spans), --device (default cuda).
 Prints the witness time, the proof time, size and security, and the

@@ -8,10 +8,14 @@ Two kernels replace the Pallas kernels of the JAX package
   rescue_permutation  <- pallas_rescue_permutation (:142-160),
                          csrc/rescue_perm.cu
 
-and three replace XLA code of the JAX package's composed-AIR path:
+and seven replace XLA code of the JAX package:
 
   blake3_leaves, blake3_merge  <- engine/hasher.py Blake3Hasher
                                   hash_columns / merge_pairs, csrc/blake3.cu
+  sha256_leaves, sha256_merge  <- engine/hasher.py Sha256Hasher
+                                  hash_columns / merge_pairs, csrc/sha256.cu
+  sha3_leaves, sha3_merge      <- engine/hasher.py Sha3Hasher
+                                  hash_columns / merge_pairs, csrc/sha3.cu
   transaction_trace            <- models/trace_device.py build_trace_device,
                                   csrc/tx_trace.cu (its plain version is
                                   models/trace_device.py build_trace_plain)
@@ -38,7 +42,7 @@ import subprocess
 
 import torch
 
-from . import blake3 as B3
+from . import blake3 as B3, sha256 as S2, sha3 as S3
 
 P = 4719772409484279809                      # 2^62 + 2^56 + 2^55 + 1
 NPRIME = (-pow(P, -1, 1 << 64)) % (1 << 64)  # 0x417fffffffffffff
@@ -72,7 +76,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = {"f63_mul": "f63_mul.cu", "rescue_perm": "rescue_perm.cu",
-           "blake3": "blake3.cu", "tx_trace": "tx_trace.cu"}
+           "blake3": "blake3.cu", "sha256": "sha256.cu", "sha3": "sha3.cu",
+           "tx_trace": "tx_trace.cu"}
 _HEADERS = ("f63.cuh",)
 
 _LIBS: dict = {}
@@ -127,18 +132,51 @@ def rescue_permutation_plain(state: torch.Tensor, mds: torch.Tensor,
     return s
 
 
+def _std_plain(cols: torch.Tensor) -> torch.Tensor:
+    """Montgomery -> standard form, REDC(v * 1)."""
+    return mul_plain(cols, torch.ones((), dtype=torch.int64,
+                                      device=cols.device))
+
+
+def _pairs(level: torch.Tensor) -> torch.Tensor:
+    """[8, 2m] digest words -> [16, m] messages left || right."""
+    return torch.cat([level[:, 0::2], level[:, 1::2]])
+
+
 def blake3_leaves_plain(cols: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch leaf hashes: [k, B] Montgomery -> [8, B] words of the
     single-chunk BLAKE3 of each row's 8k bytes (8-byte LE standard form)."""
-    std = mul_plain(cols, torch.ones((), dtype=torch.int64,
-                                     device=cols.device))
-    return B3.blake3_words(B3.felems_to_words_le(std))
+    return B3.blake3_words(B3.felems_to_words_le(_std_plain(cols)))
 
 
 def blake3_merge_plain(level: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch Merkle level: [8, 2m] words -> [8, m], pair j hashed
     as the single-chunk BLAKE3 of the 64 bytes left || right."""
-    return B3.blake3_words(torch.cat([level[:, 0::2], level[:, 1::2]]))
+    return B3.blake3_words(_pairs(level))
+
+
+def sha256_leaves_plain(cols: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch leaf hashes: [k, B] Montgomery -> [8, B] BE words of
+    the SHA-256 of each row's 8k bytes (8-byte LE standard form)."""
+    return S2.sha256_words(S2.felems_to_words(_std_plain(cols)))
+
+
+def sha256_merge_plain(level: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch Merkle level: [8, 2m] BE words -> [8, m], pair j
+    hashed as the SHA-256 of the 64 bytes left || right."""
+    return S2.sha256_words(_pairs(level))
+
+
+def sha3_leaves_plain(cols: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch leaf hashes: [k, B] Montgomery -> [8, B] LE words of
+    the SHA3-256 of each row's 8k bytes (8-byte LE standard form)."""
+    return S3.sha3_words(B3.felems_to_words_le(_std_plain(cols)))
+
+
+def sha3_merge_plain(level: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch Merkle level: [8, 2m] LE words -> [8, m], pair j
+    hashed as the SHA3-256 of the 64 bytes left || right."""
+    return S3.sha3_words(_pairs(level))
 
 
 # ---------------------------------------------------------------------------
@@ -200,6 +238,10 @@ _ENTRY_POINTS = {
     "rescue_perm": {"rescue_perm_launch": [_vp, _vp, _ll, _vp, _vp, _vp]},
     "blake3": {"blake3_leaves_launch": [_vp, _vp, _int, _ll, _vp],
                "blake3_merge_launch": [_vp, _vp, _ll, _vp]},
+    "sha256": {"sha256_leaves_launch": [_vp, _vp, _int, _ll, _vp],
+               "sha256_merge_launch": [_vp, _vp, _ll, _vp]},
+    "sha3": {"sha3_leaves_launch": [_vp, _vp, _int, _ll, _vp],
+             "sha3_merge_launch": [_vp, _vp, _ll, _vp]},
     "tx_trace": {"transaction_trace_launch":
                  [_vp] * 14 + [_int, _ll, _vp, _vp]},
 }
@@ -282,50 +324,94 @@ def rescue_permutation(state: torch.Tensor, mds: torch.Tensor,
 rescue_permutation.launches = 0
 
 
+def _leaves(wrapper, lib: str, cols: torch.Tensor, max_k=None):
+    """Launch the leaf kernel `wrapper.__name__` of library `lib` on a
+    [k, B] Montgomery int64 CUDA tensor (1 <= k <= max_k) -> [8, B]."""
+    name = wrapper.__name__
+    if cols.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {cols.device}")
+    if cols.dim() != 2 or cols.shape[0] < 1 or \
+            (max_k is not None and cols.shape[0] > max_k):
+        raise ValueError(f"{name}: shape {tuple(cols.shape)}, expected "
+                         f"(k, B) with 1 <= k <= {max_k or 'any'}")
+    _check(cols, f"{name} cols")
+    out = torch.empty((8, cols.shape[1]), dtype=torch.int64,
+                      device=cols.device)
+    stream = torch.cuda.current_stream(cols.device).cuda_stream
+    _raise_on(getattr(_lib(lib), name + "_launch")(
+        cols.data_ptr(), out.data_ptr(), cols.shape[0], cols.shape[1],
+        stream), name)
+    wrapper.launches += 1
+    return out
+
+
+def _merge(wrapper, lib: str, level: torch.Tensor):
+    """Launch the merge kernel `wrapper.__name__` of library `lib` on one
+    Merkle level, [8, 2m] int64 digest words on the card -> [8, m]."""
+    name = wrapper.__name__
+    if level.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {level.device}")
+    if level.dim() != 2 or level.shape[0] != 8 or level.shape[1] % 2:
+        raise ValueError(f"{name}: shape {tuple(level.shape)}, "
+                         "expected (8, 2m)")
+    _check(level, f"{name} level")
+    m = level.shape[1] // 2
+    out = torch.empty((8, m), dtype=torch.int64, device=level.device)
+    stream = torch.cuda.current_stream(level.device).cuda_stream
+    _raise_on(getattr(_lib(lib), name + "_launch")(
+        level.data_ptr(), out.data_ptr(), m, stream), name)
+    wrapper.launches += 1
+    return out
+
+
 def blake3_leaves(cols: torch.Tensor) -> torch.Tensor:
     """BLAKE3 leaf hashes of the rows of a [k, B] Montgomery int64 tensor
     (k <= 128: one chunk) -> [8, B] int64 digest words."""
     if cols.device.type == "cpu":
         return blake3_leaves_plain(cols)
-    if cols.device.type != "cuda":
-        raise ValueError(f"blake3_leaves: unsupported device {cols.device}")
-    if cols.dim() != 2 or not 1 <= cols.shape[0] <= 128:
-        raise ValueError(f"blake3_leaves: shape {tuple(cols.shape)}, "
-                         "expected (k, B) with 1 <= k <= 128")
-    _check(cols, "blake3_leaves cols")
-    out = torch.empty((8, cols.shape[1]), dtype=torch.int64,
-                      device=cols.device)
-    stream = torch.cuda.current_stream(cols.device).cuda_stream
-    _raise_on(_lib("blake3").blake3_leaves_launch(
-        cols.data_ptr(), out.data_ptr(), cols.shape[0], cols.shape[1],
-        stream), "blake3_leaves")
-    blake3_leaves.launches += 1
-    return out
-
-
-blake3_leaves.launches = 0
+    return _leaves(blake3_leaves, "blake3", cols, max_k=128)
 
 
 def blake3_merge(level: torch.Tensor) -> torch.Tensor:
-    """One Merkle level: [8, 2m] int64 digest words -> [8, m]."""
+    """One BLAKE3 Merkle level: [8, 2m] int64 digest words -> [8, m]."""
     if level.device.type == "cpu":
         return blake3_merge_plain(level)
-    if level.device.type != "cuda":
-        raise ValueError(f"blake3_merge: unsupported device {level.device}")
-    if level.dim() != 2 or level.shape[0] != 8 or level.shape[1] % 2:
-        raise ValueError(f"blake3_merge: shape {tuple(level.shape)}, "
-                         "expected (8, 2m)")
-    _check(level, "blake3_merge level")
-    m = level.shape[1] // 2
-    out = torch.empty((8, m), dtype=torch.int64, device=level.device)
-    stream = torch.cuda.current_stream(level.device).cuda_stream
-    _raise_on(_lib("blake3").blake3_merge_launch(
-        level.data_ptr(), out.data_ptr(), m, stream), "blake3_merge")
-    blake3_merge.launches += 1
-    return out
+    return _merge(blake3_merge, "blake3", level)
 
 
-blake3_merge.launches = 0
+def sha256_leaves(cols: torch.Tensor) -> torch.Tensor:
+    """SHA-256 leaf hashes of the rows of a [k, B] Montgomery int64 tensor
+    -> [8, B] int64 BE digest words."""
+    if cols.device.type == "cpu":
+        return sha256_leaves_plain(cols)
+    return _leaves(sha256_leaves, "sha256", cols)
+
+
+def sha256_merge(level: torch.Tensor) -> torch.Tensor:
+    """One SHA-256 Merkle level: [8, 2m] int64 digest words -> [8, m]."""
+    if level.device.type == "cpu":
+        return sha256_merge_plain(level)
+    return _merge(sha256_merge, "sha256", level)
+
+
+def sha3_leaves(cols: torch.Tensor) -> torch.Tensor:
+    """SHA3-256 leaf hashes of the rows of a [k, B] Montgomery int64 tensor
+    -> [8, B] int64 LE digest words."""
+    if cols.device.type == "cpu":
+        return sha3_leaves_plain(cols)
+    return _leaves(sha3_leaves, "sha3", cols)
+
+
+def sha3_merge(level: torch.Tensor) -> torch.Tensor:
+    """One SHA3-256 Merkle level: [8, 2m] int64 digest words -> [8, m]."""
+    if level.device.type == "cpu":
+        return sha3_merge_plain(level)
+    return _merge(sha3_merge, "sha3", level)
+
+
+for _fn in (blake3_leaves, blake3_merge, sha256_leaves, sha256_merge,
+            sha3_leaves, sha3_merge):
+    _fn.launches = 0
 
 # transaction_trace inputs, in the order of the C entry point: name ->
 # shape of one transaction's slice ("d" = the tree depth)
@@ -369,6 +455,7 @@ def transaction_trace(inputs: dict, consts: dict, depth: int) -> torch.Tensor:
 transaction_trace.launches = 0
 
 WRAPPERS = (f63_mul, rescue_permutation, blake3_leaves, blake3_merge,
+            sha256_leaves, sha256_merge, sha3_leaves, sha3_merge,
             transaction_trace)
 
 

@@ -30,7 +30,16 @@ merkle-init, merkle-update at 128 transactions depth 15 and Schnorr at 128
 signatures, the last two traced by the trace kernel): each timed by phase,
 verified by the port's verifier (a wrong public input rejected), the two
 128-unit ones also main paths with their own launch counts, profiled and
-proven with the plain versions (equal bytes). Any mismatch raises. Prints a `kernels`
+proven with the plain versions (equal bytes). The SHA-256 and SHA3-256
+leaf and merge kernels are held against their plain versions and hashlib
+at every shape the SHA proofs launch, their goldens reproduced, their
+batched PoW search held against the host loop, and two more main paths
+run the 128-transaction AIR with them: the CLI's cubic defaults with
+--hash-fn sha3 (proven again with the plain versions, equal bytes) and
+bench.py's options with SHA-256 (its plain-versions proof at 16
+transactions). Phase checkpoints are saved and resumed on the card (a
+fresh prover fed a zero trace) for the 16-transaction BLAKE3 golden and
+chain 1024. Any mismatch raises. Prints a `kernels`
 JSON line, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a result when there is
 no CUDA device or no port beside it.
@@ -78,6 +87,22 @@ MULS_PER_PERM = 7 * 14 * (MULS_PER_MSQR + MULS_PER_MMUL + 2 * MULS_PER_MDS_ROW
 # (64 a clock per SM), so bound_ms takes them with the multiplies.
 BLAKE3_OPS = 7 * 8 * 12 + 8
 REDC_OPS = 10
+# SHA-256: 32-bit integer instructions of one compression, with the card's
+# three-input add (IADD3) and logic (LOP3) and its funnel-shift rotate: 48
+# schedule words of 10 (sigma0 and sigma1: two rotates, a shift and a LOP3
+# each; two IADD3s), 64 rounds of 14 (Sigma1 and Sigma0: three rotates and
+# a LOP3 each; ch and maj a LOP3 each; two IADD3s for t1, one for a, an add
+# for e) and the 8 output adds; one byte permute (PRMT) a leaf word
+SHA256_OPS = 48 * 10 + 64 * 14 + 8
+# a merge: two compressions, the second of the constant pad block, whose
+# message schedule is known at compile time
+SHA256_MERGE_OPS = 2 * SHA256_OPS - 48 * 10
+# Keccak-f[1600] on 32-bit halves: a round's theta (the 5 column parities,
+# two LOP3s a half; the 5 rotates by 1 of a parity, two funnel shifts each;
+# each lane's s ^ C[x-1] ^ rotl(C[x+1], 1), one LOP3 a half), rho (24
+# rotates of two funnel shifts; no amount is 0 or 32), chi (50 LOP3s) and
+# iota (a xor a nonzero half of the round constant)
+KECCAK_ROUND_OPS = 20 + 10 + 50 + 48 + 50
 # Fp6 arithmetic of the trace kernel: an fp6 multiply is 6 fp2 multiplies
 # of 3 Montgomery multiplies; the multiply by the curve constant b3 takes
 # 6, 9 or 18 Montgomery multiplies (base-subfield, fp2 or full fp6 b3).
@@ -90,13 +115,25 @@ F6_INV_MMULS = 14 * 3 + 3 + P_INV_MMULS + 2
 BENCH_OPTS = dict(num_queries=42, blowup=8, grinding_bits=0, hash_fn="blake3",
                   extension_degree=1, fri_folding=4, fri_max_remainder=256)
 TX_COUNT, TX_DEPTH = 128, 15
-# BLAKE3 kernel checks: leaf shapes [k, B] (the main path's trace rows,
-# composition rows and first FRI layer, then ragged ones; the first is the
-# row of the kernels line) and merge level sizes (pairs; every size a
-# 128-transaction proof launches)
+# Hash kernel checks: leaf shapes [k, B]; the first is the row of the
+# kernels line. BLAKE3: the base path's trace rows, composition rows and
+# first FRI layer, then ragged ones. SHA: the trace rows [94, 2^20], the
+# composition rows of the cubic and base proofs [24 | 8, 2^20], the first
+# FRI layer's [12 | 4, 2^18], then ragged ones and SHA3's rate boundary of
+# 17 elements. Merge level sizes (pairs): every size a 128-transaction
+# proof launches, and ragged ones.
 LEAF_SHAPES = ((94, 1 << 20), (8, 1 << 20), (4, 1 << 18), (94, 1000),
                (7, 333), (1, 1), (128, 3))
+SHA_LEAF_SHAPES = ((94, 1 << 20), (24, 1 << 20), (8, 1 << 20), (12, 1 << 18),
+                   (4, 1 << 18), (94, 1000), (17, 333), (34, 129), (16, 7),
+                   (1, 1))
 MERGE_PAIRS = sorted({1 << e for e in range(20)} | {3, 1000})
+# hash -> (leaf shapes, seed of the random inputs, the lines of
+# certificate_stark_tpu/engine/hasher.py that the leaf and merge kernels
+# replace)
+HASH_CHECKS = {"blake3": (LEAF_SHAPES, 11, (115, 120)),
+               "sha256": (SHA_LEAF_SHAPES, 17, (76, 85)),
+               "sha3": (SHA_LEAF_SHAPES, 19, (150, 155))}
 # Seeded random inputs on which the trace kernel is held against its plain
 # version beside the main path's witness: (transactions, depth, b3 form);
 # one plain call each (~20 s on the card)
@@ -109,7 +146,9 @@ TRACE_BITS = ("path_bits", "sbits", "hbits", "dbits", "gbits")
 RESCUE_DEPTH = 2 + INV_ALPHA_SQR + INV_ALPHA_MUL + 2
 TX_GOLDENS = ("transaction_2tx_d3_rescue", "transaction_2tx_d3_blake3",
               "transaction_16tx_d15_blake3", "transaction_2tx_d3_cubic_blake3",
-              "transaction_16tx_d15_cubic_blake3_grind12")
+              "transaction_16tx_d15_cubic_blake3_grind12",
+              "transaction_2tx_d3_sha256", "transaction_2tx_d3_sha3",
+              "transaction_16tx_d15_sha3")
 # rescue chain 16 goldens: name -> (vector file, options where the file
 # does not hold them)
 CHAIN16_GOLDENS = {
@@ -119,6 +158,9 @@ CHAIN16_GOLDENS = {
         num_queries=8, blowup=4, hash_fn="blake3", extension_degree=3,
         grinding_bits=4)),
     "rescue_chain16_quadratic_rescue_grind11": ("torch_goldens.json", None),
+    "rescue_chain16_sha256": ("torch_goldens.json", None),
+    "rescue_chain16_sha3": ("torch_goldens.json", None),
+    "rescue_chain16_sha256_grind12": ("torch_goldens.json", None),
 }
 # the standalone AIRs' goldens: name -> (vector file, options where the
 # file does not hold them); and the unit count of their 128-unit paths
@@ -137,7 +179,10 @@ SUBAIR_UNITS = 128
 # state_transition.py): bench.py's options over the cubic extension
 CLI_OPTS = dict(BENCH_OPTS, extension_degree=3)
 EXT_POINTS = 1 << 20       # extension checks: [d, 2^20]
-GRIND_CASES = (("blake3", 12), ("blake3", 16), ("rescue", 12), ("rescue", 16))
+GRIND_CASES = (("blake3", 12), ("blake3", 16), ("rescue", 12), ("rescue", 16),
+               ("sha256", 12), ("sha3", 12))
+# the goldens proven with a checkpoint directory and resumed on the card
+CHECKPOINT_GOLDENS = ("transaction_16tx_d15_blake3", "rescue_chain1024_rescue")
 HOST_SCAN_CHUNK = 2048     # nonces a host-loop worker checks at a time
 # Batch sizes at which the Rescue kernel is checked and timed: every size a
 # chain-1024 proof launches (2^0 .. 2^15) and ragged ones
@@ -514,10 +559,11 @@ def _host_scan(args):
 
 
 def phase_grind(dev):
-    """The batched PoW search on the card (one blake3_merge or Rescue
-    digest a batch of 2^15 nonces) at 12 and 16 bits for BLAKE3 and
-    Rescue, timed, against the host loop over every nonce up to the one it
-    returns (in worker processes, one per CPU core)."""
+    """The batched PoW search on the card (one merge of the byte hasher or
+    one Rescue digest a batch of 2^15 nonces) at 12 and 16 bits for BLAKE3
+    and Rescue and at 12 bits for SHA-256 and SHA3-256, timed, against the
+    host loop over every nonce up to the one it returns (in worker
+    processes, one per CPU core)."""
     import multiprocessing
     from certificate_stark_tpu_torch.engine.coin import RandomCoin
     from certificate_stark_tpu_torch.engine.hasher import get_hasher
@@ -536,8 +582,9 @@ def phase_grind(dev):
             nonce = coin.grind(bits, device=dev)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
-            kernel = (K.blake3_merge if hash_fn == "blake3"
-                      else K.rescue_permutation)
+            kernel = {"blake3": K.blake3_merge, "sha256": K.sha256_merge,
+                      "sha3": K.sha3_merge,
+                      "rescue": K.rescue_permutation}[hash_fn]
             check(kernel.launches > 0, f"{hash_fn} grinding launched no "
                   f"{kernel.__name__}")
             t0 = time.perf_counter()
@@ -635,63 +682,126 @@ def phase_scale(dev):
         f"sha256 {hashlib.sha256(out['kernels']).hexdigest()[:16]}...")
 
 
-def phase_blake3(dev):
-    """blake3_leaves and blake3_merge against their plain versions, bit for
-    bit: the leaves at the main path's shapes (the trace rows [94, 2^20],
-    the composition rows [8, 2^20], the first FRI layer [4, 2^18]) and at
-    ragged ones, the merges at every level size a 128-transaction proof
-    launches (2^0 .. 2^19 pairs). The rows are the largest of each."""
+def _keccak_ops():
+    """32-bit integer instructions of one Keccak-f[1600] permutation."""
+    from certificate_stark_tpu_torch.ops.sha3 import RC
+    return 24 * KECCAK_ROUND_OPS + sum(
+        (c & 0xFFFFFFFF != 0) + (c >> 32 != 0) for c in RC)
+
+
+def _leaf_ops(hash_fn, k):
+    """32-bit integer instructions of one leaf hash of k elements: the
+    compressions or permutations, for SHA the byte swaps or absorbing xors
+    of the message words, and one REDC an element."""
+    if hash_fn == "blake3":
+        return (8 * k + 63) // 64 * BLAKE3_OPS + k * REDC_OPS
+    if hash_fn == "sha256":
+        return (2 * k + 18) // 16 * SHA256_OPS + 2 * k + k * REDC_OPS
+    return (k // 17 + 1) * _keccak_ops() + 2 * k + 2 + k * REDC_OPS
+
+
+def _merge_ops(hash_fn):
+    """32-bit integer instructions of one merge of two digests."""
+    return dict(blake3=BLAKE3_OPS, sha256=SHA256_MERGE_OPS,
+                sha3=_keccak_ops())[hash_fn]
+
+
+def phase_hashes(dev):
+    """The leaf and merge kernels of each commitment hash (HASH_CHECKS)
+    against their plain versions on the card, bit for bit, and the SHA ones
+    against hashlib on three columns: the leaves at the main paths' shapes
+    and ragged ones, the merges at every level size a 128-transaction proof
+    launches (2^0 .. 2^19 pairs) and ragged ones. Each timed at each shape
+    beside its bound; the rows are the largest of each."""
     from certificate_stark_tpu_torch.ops import kernels as K
     from certificate_stark_tpu_torch.ops import field as F
-    g = torch.Generator(device=dev).manual_seed(11)
-    err, ms_leaves = 0, {}
-    for k, b in LEAF_SHAPES:
+    from certificate_stark_tpu_torch.ops import sha256 as S2
+    from certificate_stark_tpu_torch.ops import sha3 as S3
+    # host oracle: (digest of bytes as words, byte order of a word)
+    oracles = dict(sha256=(S2.digest_words, "big"),
+                   sha3=(S3.digest_words, "little"))
+    one = torch.ones((), dtype=torch.int64)
+    rows = []
+    for hash_fn, (shapes, seed, lines) in HASH_CHECKS.items():
+        g = torch.Generator(device=dev).manual_seed(seed)
+        digest, order = oracles.get(hash_fn, (None, None))
+        also = "; equal to hashlib on 3 {} of every {}" if digest else ""
+        leaves = getattr(K, f"{hash_fn}_leaves")
+        leaves_plain = getattr(K, f"{hash_fn}_leaves_plain")
+        merge = getattr(K, f"{hash_fn}_merge")
+        merge_plain = getattr(K, f"{hash_fn}_merge_plain")
+        source = f"certificate_stark_tpu_torch/csrc/{hash_fn}.cu"
+        err, ms, bnds = 0, {}, {}
+        for k, b in shapes:
+            x = torch.randint(0, F.P, (k, b), generator=g, device=dev,
+                              dtype=torch.int64)
+            got, exp = leaves(x), leaves_plain(x)
+            err = max(err, int((got - exp).abs().max()))
+            check(err == 0, f"{leaves.__name__} differs from its plain "
+                  f"version at [{k}, {b}]")
+            if digest:
+                cols = sorted({0, b // 2, b - 1})
+                std = K.mul_plain(x[:, cols].cpu(), one)
+                for i, j in enumerate(cols):
+                    data = b"".join(int(v).to_bytes(8, "little")
+                                    for v in std[:, i].tolist())
+                    check(tuple(got[:, j].tolist()) == digest(data),
+                          f"{leaves.__name__} differs from hashlib at "
+                          f"[{k}, {b}] column {j}")
+            key = f"{k}x{b}"
+            ms[key] = cuda_ms(lambda: leaves(x), 10)
+            bnds[key] = bound_ms(8 * k * b + 64 * b,
+                                 b * _leaf_ops(hash_fn, k))[0]
+            log(f"{leaves.__name__} [{k}, {b}]: {ms[key]:.4f} ms, bound "
+                f"{bnds[key]:.4f} ms")
+            del got, exp
+        k, b = shapes[0]
         x = torch.randint(0, F.P, (k, b), generator=g, device=dev,
                           dtype=torch.int64)
-        got, exp = K.blake3_leaves(x), K.blake3_leaves_plain(x)
-        err = max(err, int((got - exp).abs().max()))
-        check(err == 0, f"blake3_leaves differs at [{k}, {b}]")
-        ms_leaves[f"{k}x{b}"] = cuda_ms(lambda: K.blake3_leaves(x), 10)
-        log(f"blake3_leaves [{k}, {b}]: {ms_leaves[f'{k}x{b}']:.4f} ms")
-    k, b = LEAF_SHAPES[0]
-    x = torch.randint(0, F.P, (k, b), generator=g, device=dev,
-                      dtype=torch.int64)
-    plain = cuda_ms(lambda: K.blake3_leaves_plain(x), 2)
-    nblocks = (8 * k + 63) // 64
-    bnd, by = bound_ms(8 * k * b + 64 * b,
-                            b * (nblocks * BLAKE3_OPS + k * REDC_OPS))
-    log(f"blake3_leaves [{k}, {b}]: plain {plain:.4f} ms, bound {bnd:.4f} ms "
-        f"({by})")
-    leaves = dict(name="blake3_leaves", route="cuda",
-                  source="certificate_stark_tpu_torch/csrc/blake3.cu",
-                  replaces="certificate_stark_tpu/engine/hasher.py:115",
-                  max_abs_err=err, ms=ms_leaves[f"{k}x{b}"], plain_ms=plain,
-                  bound_ms=bnd, bound_by=by, library_ms=None, shape=[k, b],
-                  ms_by_shape=ms_leaves)
-    err, ms_merge = 0, {}
-    for m in MERGE_PAIRS:
+        plain = cuda_ms(lambda: leaves_plain(x), 2)
+        bnd, by = bound_ms(8 * k * b + 64 * b, b * _leaf_ops(hash_fn, k))
+        log(f"{leaves.__name__} [{k}, {b}]: plain {plain:.4f} ms, bound "
+            f"{bnd:.4f} ms ({by}, {_leaf_ops(hash_fn, k)} 32-bit integer "
+            f"instructions a leaf)" + also.format("columns", "shape"))
+        rows.append(dict(
+            name=leaves.__name__, route="cuda", source=source,
+            replaces=f"certificate_stark_tpu/engine/hasher.py:{lines[0]}",
+            max_abs_err=err, ms=ms[f"{k}x{b}"], plain_ms=plain,
+            bound_ms=bnd, bound_by=by, library_ms=None, shape=[k, b],
+            ms_by_shape=ms, bound_ms_by_shape=bnds))
+        del x
+        err, ms, bnds = 0, {}, {}
+        for m in MERGE_PAIRS:
+            lvl = torch.randint(0, 1 << 32, (8, 2 * m), generator=g,
+                                device=dev, dtype=torch.int64)
+            got, exp = merge(lvl), merge_plain(lvl)
+            err = max(err, int((got - exp).abs().max()))
+            check(err == 0, f"{merge.__name__} differs at {m} pairs")
+            for j in sorted({0, m // 2, m - 1}) if digest else ():
+                words = lvl[:, 2 * j].tolist() + lvl[:, 2 * j + 1].tolist()
+                data = b"".join(int(w).to_bytes(4, order) for w in words)
+                check(tuple(got[:, j].tolist()) == digest(data),
+                      f"{merge.__name__} differs from hashlib at {m} pairs, "
+                      f"pair {j}")
+            ms[m] = cuda_ms(lambda: merge(lvl), 10)
+            bnds[m] = bound_ms(16 * m * 8 + 8 * m * 8,
+                               m * _merge_ops(hash_fn))[0]
+        log(f"{merge.__name__} ms by pairs: " + ", ".join(
+            f"{m}: {t:.4f} (bound {bnds[m]:.5f})" for m, t in ms.items()))
+        m = MERGE_PAIRS[-1]
         lvl = torch.randint(0, 1 << 32, (8, 2 * m), generator=g, device=dev,
                             dtype=torch.int64)
-        got, exp = K.blake3_merge(lvl), K.blake3_merge_plain(lvl)
-        err = max(err, int((got - exp).abs().max()))
-        check(err == 0, f"blake3_merge differs at {m} pairs")
-        ms_merge[m] = cuda_ms(lambda: K.blake3_merge(lvl), 10)
-    log("blake3_merge ms by pairs: " + ", ".join(
-        f"{m}: {t:.4f}" for m, t in ms_merge.items()))
-    m = MERGE_PAIRS[-1]
-    lvl = torch.randint(0, 1 << 32, (8, 2 * m), generator=g, device=dev,
-                        dtype=torch.int64)
-    plain = cuda_ms(lambda: K.blake3_merge_plain(lvl), 2)
-    bnd, by = bound_ms(16 * m * 8 + 8 * m * 8, m * BLAKE3_OPS)
-    log(f"blake3_merge [8, {2 * m}]: plain {plain:.4f} ms, bound {bnd:.4f} "
-        f"ms ({by})")
-    merge = dict(name="blake3_merge", route="cuda",
-                 source="certificate_stark_tpu_torch/csrc/blake3.cu",
-                 replaces="certificate_stark_tpu/engine/hasher.py:120",
-                 max_abs_err=err, ms=ms_merge[m], plain_ms=plain,
-                 bound_ms=bnd, bound_by=by, library_ms=None, shape=[8, 2 * m],
-                 ms_by_pairs=ms_merge)
-    return [leaves, merge]
+        plain = cuda_ms(lambda: merge_plain(lvl), 2)
+        bnd, by = bound_ms(16 * m * 8 + 8 * m * 8, m * _merge_ops(hash_fn))
+        log(f"{merge.__name__} [8, {2 * m}]: plain {plain:.4f} ms, bound "
+            f"{bnd:.4f} ms ({by})" + also.format("pairs", "size"))
+        rows.append(dict(
+            name=merge.__name__, route="cuda", source=source,
+            replaces=f"certificate_stark_tpu/engine/hasher.py:{lines[1]}",
+            max_abs_err=err, ms=ms[m], plain_ms=plain, bound_ms=bnd,
+            bound_by=by, library_ms=None, shape=[8, 2 * m], ms_by_pairs=ms,
+            bound_ms_by_pairs=bnds))
+    return rows
 
 
 def _trace_muls(inputs, depth, b3):
@@ -959,6 +1069,70 @@ def phase_tx_goldens(dev):
 
 
 TX_KERNELS = ("f63_mul", "blake3_leaves", "blake3_merge", "transaction_trace")
+SHA3_KERNELS = ("f63_mul", "sha3_leaves", "sha3_merge", "transaction_trace")
+SHA256_KERNELS = ("f63_mul", "sha256_leaves", "sha256_merge",
+                  "transaction_trace")
+
+
+def phase_checkpoint(dev):
+    """Checkpoint and resume on the card, for each of CHECKPOINT_GOLDENS:
+    a proof with a checkpoint directory (from tempfile, outside the
+    repository) equals the golden; a fresh Prover fed a zero trace resumes
+    every phase from the directory and gives the same bytes. Prints the
+    directory's bytes, the times of a proof without a checkpoint, with one
+    saved, and resumed (trace built beforehand), then deletes it."""
+    import shutil
+    import tempfile
+    from certificate_stark_tpu_torch.engine.options import ProofOptions
+    from certificate_stark_tpu_torch.engine.prover import Prover
+    from certificate_stark_tpu_torch.models import rescue_chain as RC
+    from certificate_stark_tpu_torch.models import transaction as TX
+    from certificate_stark_tpu_torch.utils import curve as CV
+    with open(os.path.join(ROOT, "tests", "vectors",
+                           "torch_goldens.json")) as f:
+        goldens = json.load(f)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        raw = fn().to_bytes()
+        torch.cuda.synchronize()
+        return raw, (time.perf_counter() - t0) * 1e3
+
+    for name in CHECKPOINT_GOLDENS:
+        g = goldens[name]
+        opts = ProofOptions(**g["options"])
+        if "curve" in g:
+            CV.set_curve(g["curve"])
+            ex = TX.TransactionExample(g["num_transactions"], opts,
+                                       depth=g["depth"], seed=g["seed"],
+                                       device=dev)
+        else:
+            ex = RC.RescueChainExample(g["chain_length"], opts, device=dev)
+        trace = ex.trace
+        prover = Prover(ex.air(), device=dev)
+        raw, plain_ms = timed(lambda: prover.prove(trace))
+        directory = tempfile.mkdtemp(prefix="chip_smoke_checkpoint_")
+        try:
+            raw_ck, save_ms = timed(lambda: prover.prove(
+                trace, checkpoint=prover.checkpointer(directory)))
+            files = os.listdir(directory)
+            nbytes = sum(os.path.getsize(os.path.join(directory, f))
+                         for f in files)
+            fresh = Prover(ex.air(), device=dev)
+            zero = torch.zeros_like(trace)
+            raw_resumed, resume_ms = timed(lambda: fresh.prove(
+                zero, checkpoint=fresh.checkpointer(directory)))
+        finally:
+            shutil.rmtree(directory)
+        sha = hashlib.sha256(raw).hexdigest()
+        check(sha == g["proof_sha256"], f"{name}: proof differs from golden")
+        check(raw_ck == raw, f"{name}: the checkpointed proof differs")
+        check(raw_resumed == raw, f"{name}: the resumed proof differs")
+        log(f"checkpoint {name}: {nbytes} B in {len(files)} files; prove "
+            f"{plain_ms:.1f} ms, with the checkpoint "
+            f"saved {save_ms:.1f} ms, resumed from it with a zero trace "
+            f"{resume_ms:.1f} ms; all three equal the golden {sha[:16]}...")
 
 
 def _timed_proof(dev, ex, what, need):
@@ -1092,6 +1266,8 @@ def profile_tx_proof(ex, prover, what):
     groups = {}
     for name, (t, c) in by_name.items():
         key = next((k for k in ("f63_mul", "blake3_leaves", "blake3_merge",
+                                "sha256_leaves", "sha256_merge",
+                                "sha3_leaves", "sha3_merge",
                                 "transaction_trace", "rescue_perm")
                     if k in name), "PyTorch ops")
         gt, gc = groups.get(key, (0.0, 0))
@@ -1153,6 +1329,41 @@ def _plain_equal(dev, ex, kernel_raw, what):
 def phase_tx_plain(dev, ex, kernel_raw, what="bench options"):
     """The 128-transaction proof with the plain versions."""
     _plain_equal(dev, ex, kernel_raw, f"{TX_COUNT} tx, {what}")
+
+
+def phase_sha_paths(dev, ex):
+    """The two SHA main paths on ex's 128-transaction witness: the example
+    CLI's cubic defaults with --hash-fn sha3, and bench.py's options with
+    hash_fn sha256. Each: the timed main-path run with its launches, a
+    profile, the port's verifier (tampered copies rejected). The sha3 proof
+    is proven again with the plain versions; the sha256 path's plain
+    versions run at 16 transactions (seed 42), on a proof made with the
+    kernels there. Returns the launch counts of both paths."""
+    from certificate_stark_tpu_torch.engine.options import ProofOptions
+    from certificate_stark_tpu_torch.engine.prover import Prover
+    from certificate_stark_tpu_torch.models import transaction as TX
+    launches = {}
+    for key, od, need, what in (
+            ("tx128_sha3_cubic", dict(CLI_OPTS, hash_fn="sha3"), SHA3_KERNELS,
+             "cubic, SHA3-256 (the example CLI's defaults, --hash-fn sha3)"),
+            ("tx128_sha256", dict(BENCH_OPTS, hash_fn="sha256"),
+             SHA256_KERNELS, "bench options, SHA-256")):
+        path = copy.copy(ex)
+        path.options = ProofOptions(**od)
+        prover, raw, launches[key] = _timed_proof(
+            dev, path, f"{TX_COUNT} tx depth {TX_DEPTH}, {what}", need)
+        profile_tx_proof(path, prover, f"{TX_COUNT} tx, {what}")
+        del prover
+        phase_verify(path, raw, f"{TX_COUNT} tx, {what}")
+        if key == "tx128_sha3_cubic":
+            phase_tx_plain(dev, path, raw, what)
+            continue
+        small = TX.TransactionExample(16, path.options, depth=TX_DEPTH,
+                                      seed=42, device=dev)
+        small_raw = Prover(small.air(), device=dev).prove(
+            small.trace).to_bytes()
+        _plain_equal(dev, small, small_raw, f"16 tx depth {TX_DEPTH}, {what}")
+    return launches
 
 
 def _subair_example(name, golden, opts, dev):
@@ -1332,7 +1543,7 @@ def main():
         return 0
     from certificate_stark_tpu_torch.engine.options import ProofOptions
     from certificate_stark_tpu_torch.models import transaction as TX
-    rows = phase_kernels(dev) + phase_blake3(dev)
+    rows = phase_kernels(dev) + phase_hashes(dev)
     phase_ext(dev)
     phase_grind(dev)
     phase_golden16(dev)
@@ -1341,6 +1552,7 @@ def main():
     phase_profile(dev)
     phase_scale(dev)
     phase_tx_goldens(dev)
+    phase_checkpoint(dev)
     t0 = time.perf_counter()
     ex = TX.TransactionExample(TX_COUNT, ProofOptions(**BENCH_OPTS),
                                depth=TX_DEPTH, device=dev)
@@ -1359,12 +1571,16 @@ def main():
     profile_tx_proof(cli, cli_prover, f"{TX_COUNT} tx, {what}")
     phase_verify(cli, cli_raw, f"{TX_COUNT} tx, {what}")
     phase_tx_plain(dev, cli, cli_raw, what)
+    del prover, cli_prover   # each path's peak memory holds its own Prover
+    sha_launches = phase_sha_paths(dev, ex)
     phase_subair_goldens(dev)
     sub_launches, sub_trace_ms = phase_subairs(dev)
     paths = {"chain1024": chain_launches, "tx128": tx_launches,
-             "tx128_cubic": cli_launches, **sub_launches}
+             "tx128_cubic": cli_launches, **sha_launches, **sub_launches}
     for row in rows:
         path = ("chain1024" if row["name"] == "rescue_permutation"
+                else "tx128_sha256" if row["name"].startswith("sha256")
+                else "tx128_sha3_cubic" if row["name"].startswith("sha3")
                 else "tx128_cubic")
         row["launches"] = paths[path][row["name"]]
         row["path"] = path

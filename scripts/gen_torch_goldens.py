@@ -42,6 +42,16 @@ compares; the CPU tests compare the two-transaction ones.
                                queries, blowup 8, BLAKE3
   schnorr_16sig_blake3         Schnorr AIR, 16 signatures, seed 5, the bench
                                options
+  rescue_chain16_sha256        rescue hash chain 16, 8 queries, blowup 4
+  rescue_chain16_sha3          (the options of tests/test_sha3.py), with
+                               SHA-256 or SHA3-256 commitments
+  rescue_chain16_sha256_grind12
+                               rescue_chain16_sha256 with 12 bits of
+                               grinding (the batched SHA-256 nonce search)
+  transaction_2tx_d3_sha256    transaction_2tx_d3_blake3 with SHA-256 or
+  transaction_2tx_d3_sha3      SHA3-256 commitments
+  transaction_16tx_d15_sha3    transaction_16tx_d15_blake3 with SHA3-256
+                               commitments
 
 The transaction and Schnorr goldens use the fp2 curve instance (the library default).
 Run with JAX on the CPU; names select goldens (default: all), and the file
@@ -236,6 +246,24 @@ GOLDENS = {
         lambda: schnorr_golden(2, 5, dict(TX_TEST_OPTS, hash_fn="blake3")),
     "schnorr_16sig_blake3":
         lambda: schnorr_golden(16, 5, BENCH_OPTS),
+    "rescue_chain16_sha256":
+        lambda: chain_golden(16, dict(TX_TEST_OPTS, num_queries=8, blowup=4,
+                                      hash_fn="sha256")),
+    "rescue_chain16_sha3":
+        lambda: chain_golden(16, dict(TX_TEST_OPTS, num_queries=8, blowup=4,
+                                      hash_fn="sha3")),
+    "rescue_chain16_sha256_grind12":
+        lambda: chain_golden(16, dict(TX_TEST_OPTS, num_queries=8, blowup=4,
+                                      hash_fn="sha256", grinding_bits=12)),
+    "transaction_2tx_d3_sha256":
+        lambda: transaction_golden(2, 3, 3, dict(TX_TEST_OPTS,
+                                                 hash_fn="sha256")),
+    "transaction_2tx_d3_sha3":
+        lambda: transaction_golden(2, 3, 3, dict(TX_TEST_OPTS,
+                                                 hash_fn="sha3")),
+    "transaction_16tx_d15_sha3":
+        lambda: transaction_golden(16, 15, 42, dict(BENCH_OPTS,
+                                                    hash_fn="sha3")),
 }
 
 
