@@ -17,10 +17,17 @@ coefficients, z, DEEP and FRI values are [d, ...] tensors with the
 extension coordinate leading (ops/extfield.py), and every value that leaves
 the device is flattened element-major, as the JAX package's `_flat` does.
 
-The whole LDE domain is one batch in every phase: an H100's 80 GB holds the
-domains this port proves, so the JAX package's memory workarounds (packed
-LDE, domain-chunked evaluation, column-group maps, per-row gathers) have no
-counterpart here.
+Domains of up to `chunk` points (EVAL_CHUNK, 2^20, by default: the 128-
+transaction proof's LDE) are one batch in every phase. A larger domain (the
+1024-transaction proof's 2^23 points) is worked in contiguous segments of
+`chunk` points: the constraint evaluation with the pointwise composition,
+and the DEEP quotients, each segment written into one preallocated output;
+and the LDEs run over groups of columns of at most `w * chunk` points
+each, into a preallocated output. Every value is computed pointwise (each
+inverse exactly), so the proof is the same bytes at any chunk size. This is
+the JAX package's domain-chunked evaluation and column-group LDE
+(`_pick_eval_chunk`, `_lde_cols`); its packed LDE and per-row gathers have
+no counterpart here.
 """
 from __future__ import annotations
 
@@ -37,11 +44,25 @@ from .fieldops import BASE
 from .hasher import get_hasher
 from .proof import Proof, QueryOpening
 
+EVAL_CHUNK = 1 << 20
+
+
+def pick_chunk(bn: int, block: int, chunk=None) -> int:
+    """Segment length of the domain-chunked phases: `chunk` (default
+    EVAL_CHUNK), a power of two, raised to the periodic block length
+    `block` where it is shorter, so that every segment starts at a multiple
+    of the block; bn itself (one segment) where it is not smaller."""
+    chunk = EVAL_CHUNK if chunk is None else chunk
+    if chunk <= 0 or chunk & (chunk - 1):
+        raise ValueError(f"chunk must be a power of two, not {chunk}")
+    assert block & (block - 1) == 0
+    return min(bn, max(chunk, block))
+
 
 class Prover:
     coin_journal = None   # set to a list to record the coin's journal
 
-    def __init__(self, air, device=None, hasher=None):
+    def __init__(self, air, device=None, hasher=None, chunk=None):
         opts = air.options
         self.device = dev = DV.resolve(device)
         self.air, self.opts = air, opts
@@ -79,12 +100,33 @@ class Prover:
             for adj in sorted(set(self.t_adjs)
                               | {g.adj for g in self.b_tables})}
         per = air.periodic_lde(b, offset, dev)
-        self.periodic = (tile_periodic(per, bn) if per is not None else
-                         torch.zeros((0, bn), dtype=torch.int64, device=dev))
+        # segment length (bn: unchunked); the periodic columns tiled to one
+        # segment serve every segment
+        self.chunk = S = pick_chunk(bn, per.shape[-1] if per is not None
+                                    else 1, chunk)
+        self.periodic = (tile_periodic(per, S) if per is not None else
+                         torch.zeros((0, S), dtype=torch.int64, device=dev))
 
     # ------------------------------------------------------------------
+    def _segments(self):
+        """The [j0, j1) domain segments of the chunked phases."""
+        return [(j0, j0 + self.chunk) for j0 in range(0, self.bn, self.chunk)]
+
     def _lde_from_coeffs(self, coeffs):
-        return NTT.lde_from_coeffs(coeffs, self.b, self.offset)
+        """Coefficients [..., n] -> LDE [..., bn]; above the chunk, over
+        groups of rows of at most w * chunk points each, written into one
+        preallocated output."""
+        b, bn = self.b, self.bn
+        if self.chunk == bn:
+            return NTT.lde_from_coeffs(coeffs, b, self.offset)
+        flat = coeffs.reshape(-1, self.n)
+        out = torch.empty((flat.shape[0], bn), dtype=flat.dtype,
+                          device=flat.device)
+        g = max(1, self.w * self.chunk // bn)
+        for r0 in range(0, flat.shape[0], g):
+            out[r0:r0 + g] = NTT.lde_from_coeffs(flat[r0:r0 + g], b,
+                                                 self.offset)
+        return out.reshape(tuple(coeffs.shape[:-1]) + (bn,))
 
     def phase_trace(self, trace):
         """trace [w, n] -> (coefficients [w, n], LDE [w, bn])."""
@@ -98,36 +140,49 @@ class Prover:
 
     def phase_composition(self, lde, t_alpha, t_beta, b_alpha, b_beta):
         """Constraint quotients and boundary terms combined into H(x) with
-        the extension coefficients [d, C], split into k column polynomials
-        -> (h_coeffs [d, k, n], h_lde [d, k, bn])."""
-        n, k, d, dev = self.n, self.k, self.d, self.device
-        nxt = torch.roll(lde, -self.b, dims=-1)
-        evals = self.air.evaluate_transition(BASE, lde, nxt, self.periodic)
-        # sum_c evals_c * (alpha_c + beta_c * x^adj_c), then / zerofier;
-        # base evaluations times extension coefficients, coordinatewise
-        comp = F.mul_sum(evals[None], t_alpha[:, :, None], dim=1)  # [d, bn]
-        for adj in sorted(set(self.t_adjs)):
-            sel = torch.tensor([i for i, a in enumerate(self.t_adjs)
-                                if a == adj], device=dev)
-            part = F.mul_sum(evals[sel][None], t_beta[:, sel, None], dim=1)
-            comp = F.add(comp, F.mul(part, self.xpow[adj]))
-        comp = F.mul(comp, self.zt_inv)
-        # boundary terms, one divisor group at a time
-        index = {id(a): i for i, a in enumerate(self.assertions)}
-        for grp in self.b_tables:
-            ci = torch.tensor([index[id(a)] for a in grp.assertions],
-                              device=dev)
-            num = F.sub(lde[grp.columns], grp.b_evals)[None]    # [1, g, bn]
-            term = F.add(F.mul_sum(num, b_alpha[:, ci, None], dim=1),
-                         F.mul(F.mul_sum(num, b_beta[:, ci, None], dim=1),
-                               self.xpow[grp.adj]))
-            comp = F.add(comp, F.mul(term, grp.inv_z))
+        the extension coefficients [d, C], segment by segment, split into
+        k column polynomials -> (h_coeffs [d, k, n], h_lde [d, k, bn])."""
+        n, k, d = self.n, self.k, self.d
+        comp = torch.cat([self._compose(lde, j0, j1, t_alpha, t_beta,
+                                        b_alpha, b_beta)
+                          for j0, j1 in self._segments()], dim=1)  # [d, bn]
         # coefficients over the coset, then H_i(x) with H = sum x^i H_i(x^k)
         o_inv = pow(self.offset, F.P - 2, F.P)
         coeffs = NTT.coset_scale(NTT.intt(comp), o_inv)
         h_coeffs = coeffs[:, :k * n].reshape(d, n, k).transpose(1, 2) \
             .contiguous()                                       # [d, k, n]
         return h_coeffs, self._lde_from_coeffs(h_coeffs)
+
+    def _compose(self, lde, j0, j1, t_alpha, t_beta, b_alpha, b_beta):
+        """H(x) on the domain points [j0, j1) -> [d, j1 - j0]."""
+        dev, bn = self.device, self.bn
+        cur = lde[:, j0:j1]
+        # the next-row frame: points j + b, wrapping at the domain's end
+        nxt = lde.index_select(1, (torch.arange(j0, j1, device=dev)
+                                   + self.b) % bn)
+        evals = self.air.evaluate_transition(BASE, cur, nxt, self.periodic)
+        # sum_c evals_c * (alpha_c + beta_c * x^adj_c), then / zerofier;
+        # base evaluations times extension coefficients, coordinatewise
+        comp = F.mul_sum(evals[None], t_alpha[:, :, None], dim=1)  # [d, S]
+        for adj in sorted(set(self.t_adjs)):
+            sel = torch.tensor([i for i, a in enumerate(self.t_adjs)
+                                if a == adj], device=dev)
+            part = F.mul_sum(evals[sel][None], t_beta[:, sel, None], dim=1)
+            comp = F.add(comp, F.mul(part, self.xpow[adj][j0:j1]))
+        comp = F.mul(comp, self.zt_inv[j0:j1])
+        # boundary terms, one divisor group at a time
+        index = {id(a): i for i, a in enumerate(self.assertions)}
+        for grp in self.b_tables:
+            ci = torch.tensor([index[id(a)] for a in grp.assertions],
+                              device=dev)
+            b_evals = grp.b_evals if grp.b_evals.shape[-1] == 1 \
+                else grp.b_evals[:, j0:j1]
+            num = F.sub(cur[grp.columns], b_evals)[None]       # [1, g, S]
+            term = F.add(F.mul_sum(num, b_alpha[:, ci, None], dim=1),
+                         F.mul(F.mul_sum(num, b_beta[:, ci, None], dim=1),
+                               self.xpow[grp.adj][j0:j1]))
+            comp = F.add(comp, F.mul(term, grp.inv_z[j0:j1]))
+        return comp
 
     def ood_points(self, z):
         """z, z*g and z^k of the extension point z [d] -> [d, 3]."""
@@ -147,29 +202,39 @@ class Prover:
 
     def phase_deep(self, lde, h_lde, ood_z, ood_zg, ood_h, g_z, g_zg, g_h,
                    z):
-        """DEEP composition over the LDE domain -> [d, bn]:
-        sum_j g_j (f_j(x) - f_j(p)) / (x - p) over the trace columns at
-        p = z and z*g and the composition columns at z^k."""
-        d, bn = self.d, self.bn
-        # x - p for the three points, [d, 3, bn], and their inverses from
-        # one inversion of their product
+        """DEEP composition over the LDE domain, segment by segment ->
+        [d, bn]: sum_j g_j (f_j(x) - f_j(p)) / (x - p) over the trace
+        columns at p = z and z*g and the composition columns at z^k."""
+        d = self.d
         pts = self.ood_points(z)
-        den = torch.cat([F.sub(self.xs[None], pts[0][:, None])[None],
-                         F.neg(pts[1:])[:, :, None].expand(d - 1, 3, bn)])
+        # sum_j g_j f_j(p) for the three points, [d, 3]
+        c = torch.stack([XF.ext_mul_sum(g_z, ood_z, d, dim=1),
+                         XF.ext_mul_sum(g_zg, ood_zg, d, dim=1),
+                         XF.ext_mul_sum(g_h, ood_h, d, dim=1)], dim=1)
+        return torch.cat([self._deep(lde, h_lde, j0, j1, pts, c, g_z, g_zg,
+                                     g_h)
+                          for j0, j1 in self._segments()], dim=1)
+
+    def _deep(self, lde, h_lde, j0, j1, pts, c, g_z, g_zg, g_h):
+        """The DEEP quotients' sum on the domain points [j0, j1)."""
+        d, S = self.d, j1 - j0
+        # x - p for the three points, [d, 3, S], and their inverses from
+        # one inversion of their product
+        den = torch.cat([F.sub(self.xs[None, j0:j1], pts[0][:, None])[None],
+                         F.neg(pts[1:])[:, :, None].expand(d - 1, 3, S)])
         xz, xzg, xzk = den[:, 0], den[:, 1], den[:, 2]
         others = XF.ext_mul(torch.stack([xzg, xz, xz], dim=1),
                             torch.stack([xzk, xzk, xzg], dim=1), d)
         inv_all = XF.ext_inv_vec(XF.ext_mul(others[:, 2], xzk, d), d)
         inv_den = XF.ext_mul(others, inv_all[:, None], d)
         # numerators: sum_j g_j f_j(x) - sum_j g_j f_j(p)
-        c = torch.stack([XF.ext_mul_sum(g_z, ood_z, d, dim=1),
-                         XF.ext_mul_sum(g_zg, ood_zg, d, dim=1),
-                         XF.ext_mul_sum(g_h, ood_h, d, dim=1)], dim=1)
+        cur = lde[None, :, j0:j1]
         num = torch.stack([
-            F.mul_sum(lde[None], g_z[:, :, None], dim=1),
-            F.mul_sum(lde[None], g_zg[:, :, None], dim=1),
-            XF.ext_mul_sum(h_lde, g_h[:, :, None], d, dim=1)], dim=1)
-        q = XF.ext_mul(F.sub(num, c[:, :, None]), inv_den, d)   # [d, 3, bn]
+            F.mul_sum(cur, g_z[:, :, None], dim=1),
+            F.mul_sum(cur, g_zg[:, :, None], dim=1),
+            XF.ext_mul_sum(h_lde[..., j0:j1], g_h[:, :, None], d, dim=1)],
+            dim=1)
+        q = XF.ext_mul(F.sub(num, c[:, :, None]), inv_den, d)   # [d, 3, S]
         return F.add(F.add(q[:, 0], q[:, 1]), q[:, 2])
 
     # ------------------------------------------------------------------

@@ -11,7 +11,10 @@ flags), proving on the GPU and verifying with the port's verifier.
 Flags: -n/--num-transactions, -q/--queries, -b/--blowup, -g/--grinding,
 --hash-fn (rescue, sha256, blake3 or sha3, each with its kernels),
 -e/--extension (1, 2, 3), -f/--fri-folding, --depth (the reference fixes
-15), -v/--verbose (per-phase prover spans), --device (default cuda).
+15), -v/--verbose (per-phase prover spans, the domain segments and, on the
+card, the peak device memory), --device (default cuda). `-n 1024` is the
+JAX package's north star: a 94 x 2^20 trace over an LDE of 2^23 points,
+proved in segments of 2^20 points (engine/prover.py EVAL_CHUNK).
 Prints the witness time, the proof time, size and security, and the
 verification time, like the JAX package's CLI.
 """
@@ -38,7 +41,7 @@ def main(argv=None):
                     choices=[2, 4])
     ap.add_argument("--depth", type=int, default=15)
     ap.add_argument("-v", "--verbose", action="store_true",
-                    help="per-phase prover spans")
+                    help="per-phase prover spans, segments, peak memory")
     ap.add_argument("--device", default="cuda",
                     help="torch device to prove on (default: cuda)")
     args = ap.parse_args(argv)
@@ -72,6 +75,8 @@ def main(argv=None):
         spans.append((label, now - t_last[0]))
         t_last[0] = now
 
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     t0 = t_last[0] = time.time()
     prover = Prover(ex.air(), ex.device)
     proof = prover.prove(ex.trace, mark=mark if args.verbose else None)
@@ -79,6 +84,12 @@ def main(argv=None):
     print(f"proof generated in {time.time() - t0:.2f} s")
     for label, s in spans:
         print(f"  {label:32s} {s * 1e3:10.1f} ms")
+    if args.verbose:
+        print(f"  LDE domain {prover.bn} points in segments of "
+              f"{prover.chunk}")
+        if dev.type == "cuda":
+            peak = torch.cuda.max_memory_allocated(dev) / 2**20
+            print(f"  peak device memory {peak:.0f} MiB")
     print(f"proof size: {proof.size_bytes() / 1024:.1f} KB")
     print(f"proof security: {proof.security_level()} bits")
 

@@ -88,6 +88,15 @@ def pack_witness(md, messages, device):
     return _tensors(rows, device), _consts(device)
 
 
+def select_transactions(inputs, idx):
+    """The packed inputs of the transactions at positions `idx` (a list),
+    in that order. A transaction's 1024 trace rows depend only on its own
+    inputs, so the trace of the selection is those transactions' row
+    blocks of the whole trace."""
+    at = torch.tensor(idx, dtype=torch.int64, device=inputs["init"].device)
+    return {name: t.index_select(0, at) for name, t in inputs.items()}
+
+
 def _run(inputs, consts, depth) -> torch.Tensor:
     """The trace kernel on the card; its plain version on the CPU or inside
     `kernels.plain_versions()`."""

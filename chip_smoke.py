@@ -6,9 +6,9 @@
 Builds the port's CUDA kernels from certificate_stark_tpu_torch/csrc and
 holds each against its plain PyTorch version on the card (f63_mul, the
 Rescue permutation at every batch size a chain-1024 proof launches, the
-BLAKE3 leaf and merge kernels at every shape a 128-transaction proof
-launches, the transaction trace at 128 transactions, depth 15). Two main
-paths run with their launch counts set to 0 just before and read just
+BLAKE3 leaf and merge kernels at every shape a 128- or 1024-transaction
+proof launches, the transaction trace at 128 transactions, depth 15). Two
+main paths run with their launch counts set to 0 just before and read just
 after: the rescue chain of length 1024 (Rescue commitments) and the
 composed state-transition AIR at 128 transactions, depth 15, with bench.py's
 options (BLAKE3 commitments); each is timed by phase after a warm-up and
@@ -39,10 +39,23 @@ run the 128-transaction AIR with them: the CLI's cubic defaults with
 bench.py's options with SHA-256 (its plain-versions proof at 16
 transactions). Phase checkpoints are saved and resumed on the card (a
 fresh prover fed a zero trace) for the 16-transaction BLAKE3 golden and
-chain 1024. Any mismatch raises. Prints a `kernels`
-JSON line, the card's name and power limit, and as the last line
-{"ok": true, "device": {...}}. Exits non-zero without a result when there is
-no CUDA device or no port beside it.
+chain 1024. Last, the JAX package's north star: the composed AIR at 1024
+transactions, depth 15 (trace 94 x 2^20, LDE 2^23, in domain segments of
+2^20 points), on a witness built in a worker process from the script's
+start (minutes of host Python, overlapping the phases before): the trace
+kernel at that size held against its plain version on four transactions'
+row blocks, and two more main paths, bench.py's options and the CLI's
+cubic defaults, timed by phase, verified (tampered copies rejected) and
+equal to the pinned proofs of tests/vectors/transaction_1024tx_d15_blake3;
+the 128-transaction proof in eight segments equals the unchunked one. Any
+mismatch raises. Prints a `kernels` JSON line, the card's name and power
+limit, and as the last line {"ok": true, "device": {...}}. Exits non-zero
+without a result when there is no CUDA device or no port beside it.
+
+    python3 chip_smoke.py --tx1024
+
+runs the 1024-transaction phase alone, with the BLAKE3 kernel checks and
+the chunked 128-transaction proof (~4 minutes, most of it the witness).
 """
 import concurrent.futures
 import copy
@@ -115,25 +128,50 @@ F6_INV_MMULS = 14 * 3 + 3 + P_INV_MMULS + 2
 BENCH_OPTS = dict(num_queries=42, blowup=8, grinding_bits=0, hash_fn="blake3",
                   extension_degree=1, fri_folding=4, fri_max_remainder=256)
 TX_COUNT, TX_DEPTH = 128, 15
+# The JAX package's north star (bench.py:94-114 with BENCH_TX=1024): 1024
+# transactions at depth 15, trace 94 x 2^20, LDE 2^23, proven in domain
+# segments of 2^20 points; its trace kernel held against the plain version
+# on the row blocks of these transactions
+TX1024 = 1024
+TX1024_BLOCKS = (0, 341, 682, TX1024 - 1)
+# its pinned proofs: the base one's bytes (the JAX package's verifier
+# accepts them) and the cubic one's sha256
+TX1024_VECTOR = "transaction_1024tx_d15_blake3.json"
+# the 128-transaction proof with bench options
+TX128_SHA256 = ("ccd61384ace1e33ca22fffff156a0250"
+                "d46859ccb4916bd3f1d9ba7096c0dea0")
+# f63_mul checks: the MDS layer of the constraint evaluation ([14, 14, B]
+# for chain 1024 and 128 transactions: the row of the kernels line), and
+# the largest launch of the 1024-transaction path (the cubic composition's
+# [3, 115, 2^20] products of a 2^20-point segment)
+F63_SIZES = (14 * 14 * (1 << 15), 14 * 14 * (1 << 20), 3 * 115 * (1 << 20))
+F63_ROW = 14 * 14 * (1 << 20)
+# columns a plain-version call takes at once in the kernel checks (its
+# temporaries take many times its input)
+PLAIN_SLICE = 1 << 20
 # Hash kernel checks: leaf shapes [k, B]; the first is the row of the
 # kernels line. BLAKE3: the base path's trace rows, composition rows and
 # first FRI layer, then ragged ones. SHA: the trace rows [94, 2^20], the
 # composition rows of the cubic and base proofs [24 | 8, 2^20], the first
 # FRI layer's [12 | 4, 2^18], then ragged ones and SHA3's rate boundary of
-# 17 elements. Merge level sizes (pairs): every size a 128-transaction
-# proof launches, and ragged ones.
+# 17 elements; BLAKE3 also the 1024-transaction trace rows [94, 2^23].
+# Merge level sizes (pairs): every size a 128-transaction proof launches,
+# and ragged ones; BLAKE3 also every size of a 1024-transaction proof (up
+# to 2^22 pairs). The rows of the kernels line stay at 2^19 pairs.
 LEAF_SHAPES = ((94, 1 << 20), (8, 1 << 20), (4, 1 << 18), (94, 1000),
-               (7, 333), (1, 1), (128, 3))
+               (7, 333), (1, 1), (128, 3), (94, 1 << 23))
 SHA_LEAF_SHAPES = ((94, 1 << 20), (24, 1 << 20), (8, 1 << 20), (12, 1 << 18),
                    (4, 1 << 18), (94, 1000), (17, 333), (34, 129), (16, 7),
                    (1, 1))
 MERGE_PAIRS = sorted({1 << e for e in range(20)} | {3, 1000})
-# hash -> (leaf shapes, seed of the random inputs, the lines of
-# certificate_stark_tpu/engine/hasher.py that the leaf and merge kernels
+B3_MERGE_PAIRS = sorted(set(MERGE_PAIRS) | {1 << e for e in range(20, 23)})
+ROW_PAIRS = 1 << 19
+# hash -> (leaf shapes, merge pairs, seed of the random inputs, the lines
+# of certificate_stark_tpu/engine/hasher.py that the leaf and merge kernels
 # replace)
-HASH_CHECKS = {"blake3": (LEAF_SHAPES, 11, (115, 120)),
-               "sha256": (SHA_LEAF_SHAPES, 17, (76, 85)),
-               "sha3": (SHA_LEAF_SHAPES, 19, (150, 155))}
+HASH_CHECKS = {"blake3": (LEAF_SHAPES, B3_MERGE_PAIRS, 11, (115, 120)),
+               "sha256": (SHA_LEAF_SHAPES, MERGE_PAIRS, 17, (76, 85)),
+               "sha3": (SHA_LEAF_SHAPES, MERGE_PAIRS, 19, (150, 155))}
 # Seeded random inputs on which the trace kernel is held against its plain
 # version beside the main path's witness: (transactions, depth, b3 form);
 # one plain call each (~20 s on the card)
@@ -223,6 +261,19 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def plain_err(got, plain_of, n, per=1):
+    """max |got - the plain version| over an input axis of n columns, the
+    plain version run on slices of PLAIN_SLICE * per input columns
+    (`plain_of(slice)`; `per` input columns to an output column)."""
+    err, step = 0, PLAIN_SLICE * per
+    for i in range(0, n, step):
+        exp = plain_of(slice(i, i + step))
+        o = i // per
+        err = max(err, int((got[..., o:o + exp.shape[-1]] - exp)
+                           .abs().max()))
+    return err
+
+
 def bound_ms(nbytes, muls):
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
     t_ops = muls / INT32_MUL_PER_S * 1e3
@@ -271,10 +322,7 @@ def phase_kernels(dev):
     P = F.P
     rand = _randoms(dev)
     rows = []
-    # f63_mul: 2^24 random values plus the edge values, then the largest
-    # product of each main path (the MDS layer of the constraint
-    # evaluation: [14, 14, 2^15] for chain 1024, [14, 14, 2^20] for 128
-    # transactions, the row of the kernels line)
+    # f63_mul: 2^24 random values plus the edge values, then F63_SIZES
     edge = torch.tensor([0, 1, P - 1, P - 2, 1 << 32, (1 << 63) % P],
                         dtype=torch.int64, device=dev)
     a = torch.cat([rand(1 << 24), edge.repeat_interleave(6)])
@@ -282,24 +330,30 @@ def phase_kernels(dev):
     got, exp = K.f63_mul(a, b), K.mul_plain(a, b)
     err = int((got - exp).abs().max())
     check(err == 0, "f63_mul differs from its plain version at 2^24")
-    ms_by_n = {}
-    for n in (14 * 14 * (1 << 15), 14 * 14 * (1 << 20)):
+    ms_by_n, bound_by_n = {}, {}
+    for n in F63_SIZES:
         a, b = rand(n), rand(n)
-        got, exp = K.f63_mul(a, b), K.mul_plain(a, b)
-        err = max(err, int((got - exp).abs().max()))
+        got = K.f63_mul(a, b)
+        err = max(err, plain_err(got, lambda s: K.mul_plain(a[s], b[s]), n))
         check(err == 0, f"f63_mul differs from its plain version at [{n}]")
-        del got, exp
+        del got
         ms_by_n[n] = cuda_ms(lambda: K.f63_mul(a, b), 20)
-        plain = cuda_ms(lambda: K.mul_plain(a, b), 2)
-        bnd, by = bound_ms(24 * n, n * MULS_PER_MMUL)
-        log(f"f63_mul [{n}]: {ms_by_n[n]:.4f} ms, plain {plain:.4f} ms, "
-            f"bound {bnd:.4f} ms ({by})")
+        bound_by_n[n] = bound_ms(24 * n, n * MULS_PER_MMUL)[0]
+        log(f"f63_mul [{n}]: {ms_by_n[n]:.4f} ms, bound "
+            f"{bound_by_n[n]:.4f} ms")
+        del a, b
+    n = F63_ROW
+    a, b = rand(n), rand(n)
+    plain = cuda_ms(lambda: K.mul_plain(a, b), 2)
+    bnd, by = bound_ms(24 * n, n * MULS_PER_MMUL)
+    log(f"f63_mul [{n}]: {ms_by_n[n]:.4f} ms, plain {plain:.4f} ms, "
+        f"bound {bnd:.4f} ms ({by})")
     rows.append(dict(name="f63_mul", route="cuda",
                      source="certificate_stark_tpu_torch/csrc/f63_mul.cu",
                      replaces="certificate_stark_tpu/ops/pallas_kernels.py:177",
                      max_abs_err=err, ms=ms_by_n[n], plain_ms=plain,
                      bound_ms=bnd, bound_by=by, library_ms=None, shape=[n],
-                     ms_by_n=ms_by_n))
+                     ms_by_n=ms_by_n, bound_ms_by_n=bound_by_n))
     del a, b
 
     rows.append(phase_rescue(dev, rand))
@@ -706,13 +760,15 @@ def _merge_ops(hash_fn):
                 sha3=_keccak_ops())[hash_fn]
 
 
-def phase_hashes(dev):
-    """The leaf and merge kernels of each commitment hash (HASH_CHECKS)
-    against their plain versions on the card, bit for bit, and the SHA ones
-    against hashlib on three columns: the leaves at the main paths' shapes
-    and ragged ones, the merges at every level size a 128-transaction proof
-    launches (2^0 .. 2^19 pairs) and ragged ones. Each timed at each shape
-    beside its bound; the rows are the largest of each."""
+def phase_hashes(dev, names=tuple(HASH_CHECKS)):
+    """The leaf and merge kernels of each commitment hash `names` of
+    HASH_CHECKS against their plain versions on the card, bit for bit, and
+    the SHA ones against hashlib on three columns: the leaves at the main
+    paths' shapes and ragged ones, the merges at every level size a
+    128-transaction proof launches (2^0 .. 2^19 pairs; BLAKE3 up to the
+    1024-transaction proof's 2^22) and ragged ones. Each timed at each
+    shape beside its bound; the rows are at the first leaf shape and at
+    ROW_PAIRS."""
     from certificate_stark_tpu_torch.ops import kernels as K
     from certificate_stark_tpu_torch.ops import field as F
     from certificate_stark_tpu_torch.ops import sha256 as S2
@@ -722,7 +778,8 @@ def phase_hashes(dev):
                    sha3=(S3.digest_words, "little"))
     one = torch.ones((), dtype=torch.int64)
     rows = []
-    for hash_fn, (shapes, seed, lines) in HASH_CHECKS.items():
+    for hash_fn in names:
+        shapes, pairs, seed, lines = HASH_CHECKS[hash_fn]
         g = torch.Generator(device=dev).manual_seed(seed)
         digest, order = oracles.get(hash_fn, (None, None))
         also = "; equal to hashlib on 3 {} of every {}" if digest else ""
@@ -735,8 +792,9 @@ def phase_hashes(dev):
         for k, b in shapes:
             x = torch.randint(0, F.P, (k, b), generator=g, device=dev,
                               dtype=torch.int64)
-            got, exp = leaves(x), leaves_plain(x)
-            err = max(err, int((got - exp).abs().max()))
+            got = leaves(x)
+            err = max(err, plain_err(got, lambda s: leaves_plain(x[:, s]),
+                                     b))
             check(err == 0, f"{leaves.__name__} differs from its plain "
                   f"version at [{k}, {b}]")
             if digest:
@@ -754,7 +812,7 @@ def phase_hashes(dev):
                                  b * _leaf_ops(hash_fn, k))[0]
             log(f"{leaves.__name__} [{k}, {b}]: {ms[key]:.4f} ms, bound "
                 f"{bnds[key]:.4f} ms")
-            del got, exp
+            del got, x
         k, b = shapes[0]
         x = torch.randint(0, F.P, (k, b), generator=g, device=dev,
                           dtype=torch.int64)
@@ -771,11 +829,12 @@ def phase_hashes(dev):
             ms_by_shape=ms, bound_ms_by_shape=bnds))
         del x
         err, ms, bnds = 0, {}, {}
-        for m in MERGE_PAIRS:
+        for m in pairs:
             lvl = torch.randint(0, 1 << 32, (8, 2 * m), generator=g,
                                 device=dev, dtype=torch.int64)
-            got, exp = merge(lvl), merge_plain(lvl)
-            err = max(err, int((got - exp).abs().max()))
+            got = merge(lvl)
+            err = max(err, plain_err(got, lambda s: merge_plain(lvl[:, s]),
+                                     2 * m, per=2))
             check(err == 0, f"{merge.__name__} differs at {m} pairs")
             for j in sorted({0, m // 2, m - 1}) if digest else ():
                 words = lvl[:, 2 * j].tolist() + lvl[:, 2 * j + 1].tolist()
@@ -788,7 +847,7 @@ def phase_hashes(dev):
                                m * _merge_ops(hash_fn))[0]
         log(f"{merge.__name__} ms by pairs: " + ", ".join(
             f"{m}: {t:.4f} (bound {bnds[m]:.5f})" for m, t in ms.items()))
-        m = MERGE_PAIRS[-1]
+        m = ROW_PAIRS
         lvl = torch.randint(0, 1 << 32, (8, 2 * m), generator=g, device=dev,
                             dtype=torch.int64)
         plain = cuda_ms(lambda: merge_plain(lvl), 2)
@@ -1135,20 +1194,21 @@ def phase_checkpoint(dev):
             f"{resume_ms:.1f} ms; all three equal the golden {sha[:16]}...")
 
 
-def _timed_proof(dev, ex, what, need):
-    """ex.options' proof of ex's statement: warm-up, then the counted and
-    timed main-path run, the trace build (`ex.trace`) included, on a
-    Prover built before the timed window; then one `ex.prove()`, timed as
-    bench.py and benches.py time it (a new Prover each call, its set-up
-    included). Checks that every kernel in `need` was launched; returns
-    (prover, proof bytes, launches)."""
+def _timed_proof(dev, ex, what, need, trace=None, again=True):
+    """ex.options' proof of ex's statement: warm-up (on `trace` where
+    given, else on a trace built for it), then the counted and timed
+    main-path run, the trace build (`ex.trace`) included, on a Prover
+    built before the timed window; then, with `again`, one `ex.prove()`,
+    timed as bench.py and benches.py time it (a new Prover each call, its
+    set-up included). Checks that every kernel in `need` was launched;
+    returns (prover, proof bytes, launches)."""
     from certificate_stark_tpu_torch.engine.prover import Prover
     from certificate_stark_tpu_torch.ops import kernels as K
     t0 = time.perf_counter()
     prover = Prover(ex.air(), device=dev)
     torch.cuda.synchronize()
     setup_ms = (time.perf_counter() - t0) * 1e3
-    warm = prover.prove(ex.trace).to_bytes()                 # warm-up
+    warm = prover.prove(ex.trace if trace is None else trace).to_bytes()
 
     spans = []
     t_last = [0.0]
@@ -1174,21 +1234,22 @@ def _timed_proof(dev, ex, what, need):
         f"prover set-up {setup_ms:.1f} ms")
     for label, ms in spans:
         log(f"  {label:32s} {ms:10.1f} ms")
-    log(f"  peak device memory {peak / 2**20:.0f} MiB; kernel launches "
-        f"{launches}")
+    log(f"  peak device memory {peak / 2**20:.0f} MiB; domain {prover.bn} "
+        f"points in segments of {prover.chunk}; kernel launches {launches}")
     for name in need:
         check(launches[name] > 0, f"{name} was not launched on the main "
               f"path ({what})")
     check(raw == warm, "two proofs of the same statement differ")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    again = ex.prove().to_bytes()
-    torch.cuda.synchronize()
-    log(f"  ex.prove() wall (set-up and trace build included, as bench.py "
-        f"times it) {(time.perf_counter() - t0) * 1e3:.1f} ms")
-    check(again == raw, "ex.prove() differs from the main-path proof")
-    log(f"  proof {len(raw)} B, sha256 {hashlib.sha256(raw).hexdigest()[:16]}"
-        f"..., security {proof.security_level()} bits")
+    if again:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        raw_again = ex.prove().to_bytes()
+        torch.cuda.synchronize()
+        log(f"  ex.prove() wall (set-up and trace build included, as "
+            f"bench.py times it) {(time.perf_counter() - t0) * 1e3:.1f} ms")
+        check(raw_again == raw, "ex.prove() differs from the main-path proof")
+    log(f"  proof {len(raw)} B, sha256 {hashlib.sha256(raw).hexdigest()}, "
+        f"security {proof.security_level()} bits")
     return prover, raw, launches
 
 
@@ -1506,6 +1567,186 @@ def _subtrace_kernel_ms(ex, what):
     return ms
 
 
+def _tx1024_witness(conn):
+    """The 1024-transaction depth-15 witness (host Python; seed 42, the fp2
+    curve, as the 128-transaction one), built in a worker process and sent
+    back with its seconds. The example's device is the CPU until the main
+    process sets it."""
+    from certificate_stark_tpu_torch.engine.options import ProofOptions
+    from certificate_stark_tpu_torch.models import transaction as TX
+    from certificate_stark_tpu_torch.utils import curve as CV
+    CV.set_curve("fp2")
+    t0 = time.perf_counter()
+    ex = TX.TransactionExample(TX1024, ProofOptions(**BENCH_OPTS),
+                               depth=TX_DEPTH, device="cpu")
+    conn.send((ex, time.perf_counter() - t0))
+    conn.close()
+
+
+def start_witness():
+    """Starts _tx1024_witness in a spawn worker, so that its minutes of
+    host Python overlap the phases before the 1024-transaction one:
+    (process, receiving end)."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_tx1024_witness, args=(send,), daemon=True)
+    proc.start()
+    send.close()
+    return proc, recv
+
+
+def phase_trace1024(dev, ex, latency_ns):
+    """The trace kernel at 1024 transactions on ex's witness, timed with
+    its host packing, and held against its plain version on the row blocks
+    of the transactions TX1024_BLOCKS (the plain trace of their packed
+    inputs alone: a transaction's rows depend only on its own inputs).
+    Returns the trace, for the proofs' warm-ups."""
+    from certificate_stark_tpu_torch.models import trace_device as TD
+    from certificate_stark_tpu_torch.ops import kernels as K
+    from certificate_stark_tpu_torch.utils import curve as CV
+    depth = ex.depth
+    t0 = time.perf_counter()
+    inputs, consts = TD.pack_witness(ex.md, ex.messages, dev)
+    torch.cuda.synchronize()
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    trace = K.transaction_trace(inputs, consts, depth)
+    ms = cuda_ms(lambda: K.transaction_trace(inputs, consts, depth), 5)
+    idx = list(TX1024_BLOCKS)
+    t0 = time.perf_counter()
+    with K.plain_versions():
+        exp = TD.build_trace_plain(TD.select_transactions(inputs, idx),
+                                   consts, depth)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = trace.view(94, TX1024, 1024)[:, idx].reshape(94, -1)
+    bad = (got != exp).reshape(94, len(idx), 1024).nonzero()
+    if bad.shape[0]:
+        log(f"  {bad.shape[0]} cells differ; first (col, block, row): "
+            f"{bad[:8].tolist()}")
+    check(bad.shape[0] == 0, f"transaction_trace at {TX1024} tx differs "
+          f"from its plain version on the blocks of transactions {idx}")
+    nbytes = sum(t.numel() * 8 for t in inputs.values()) + trace.numel() * 8
+    muls = _trace_muls(inputs, depth, CV.B3_LIMBS)
+    bnd, by = bound_ms(nbytes, muls)
+    chain, lane = _trace_chain(inputs, depth)
+    log(f"transaction_trace [94, {trace.shape[1]}] ({TX1024} tx depth "
+        f"{depth}): {ms:.4f} ms, bound {bnd:.4f} ms ({by}), critical-path "
+        f"bound {chain * latency_ns * 1e-6:.4f} ms ({chain} dependent "
+        f"multiplies, {lane} lane); host packing {pack_ms:.1f} ms; equal "
+        f"to the plain version on transactions {idx} (plain {plain_ms:.1f} "
+        f"ms for those {len(idx)})")
+    return trace
+
+
+def phase_tx1024(dev, witness, latency_ns):
+    """The JAX package's north star, the composed AIR at 1024 transactions,
+    depth 15 (trace 94 x 2^20, LDE 2^23, in segments of 2^20 points), on the
+    witness of the worker `witness` (start_witness): the trace kernel at
+    that size (phase_trace1024), then two main paths on the one witness,
+    bench.py's options (`tx1024`) and the example CLI's cubic defaults
+    (`tx1024_cubic`), each timed by phase after a warm-up (_timed_proof;
+    no `ex.prove()` at this size), verified by the port's verifier (two
+    tampered copies rejected); the base one profiled, and its trace LDE
+    measured in column groups and whole (_lde_peaks). Both equal the
+    pinned proofs of
+    TX1024_VECTOR. The base proof's bytes go to build/tx1024_base.proof.
+    Returns the launch counts of both paths."""
+    from certificate_stark_tpu_torch.engine.options import ProofOptions
+    vectors = os.path.join(ROOT, "tests", "vectors")
+    with open(os.path.join(vectors, TX1024_VECTOR)) as f:
+        pin = json.load(f)
+    with open(os.path.join(vectors, pin["proof_file"]), "rb") as f:
+        pinned = f.read()
+    proc, recv = witness
+    t0 = time.perf_counter()
+    ex, secs = recv.recv()
+    proc.join()
+    log(f"witness, {TX1024} tx depth {TX_DEPTH} (host Python, in a worker "
+        f"started at the script's start): {secs:.1f} s; waited "
+        f"{time.perf_counter() - t0:.1f} s for it here")
+    ex.device = dev
+    trace = phase_trace1024(dev, ex, latency_ns)
+    launches = {}
+    for key, od, what in (
+            ("tx1024", BENCH_OPTS, "bench options"),
+            ("tx1024_cubic", CLI_OPTS,
+             "cubic, BLAKE3 (the example CLI's defaults)")):
+        path = copy.copy(ex)
+        path.options = ProofOptions(**od)
+        prover, raw, launches[key] = _timed_proof(
+            dev, path, f"{TX1024} tx depth {TX_DEPTH}, {what}", TX_KERNELS,
+            trace=trace, again=False)
+        if key == "tx1024":
+            profile_tx_proof(path, prover, f"{TX1024} tx, {what}")
+            _lde_peaks(prover, trace)
+        del prover
+        sha = hashlib.sha256(raw).hexdigest()
+        if key == "tx1024":
+            os.makedirs(OUT, exist_ok=True)
+            with open(os.path.join(OUT, "tx1024_base.proof"), "wb") as f:
+                f.write(raw)
+            check(raw == pinned, f"{TX1024} tx, {what}: proof {sha} "
+                  f"differs from the pinned {pin['proof_sha256']}")
+        else:
+            check((sha, len(raw)) == (pin["cubic_proof_sha256"],
+                                      pin["cubic_proof_len"]),
+                  f"{TX1024} tx, {what}: proof {sha} differs from the "
+                  f"pinned {pin['cubic_proof_sha256']}")
+        log(f"  equal to the pinned proof of {TX1024_VECTOR}")
+        phase_verify(path, raw, f"{TX1024} tx, {what}")
+    return launches
+
+
+def _lde_peaks(prover, trace):
+    """The trace LDE of `prover`'s chunked domain in column groups (the
+    prover's way) and whole: equal values, and the peak device memory each
+    adds to what is allocated before it, and its time."""
+    from certificate_stark_tpu_torch.ops import ntt as NTT
+    coeffs = NTT.intt(trace)
+    out = {}
+    for label, fn in (
+            ("in column groups", lambda: prover._lde_from_coeffs(coeffs)),
+            ("whole", lambda: NTT.lde_from_coeffs(coeffs, prover.b,
+                                                  prover.offset))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out[label] = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        log(f"  trace LDE [{trace.shape[0]}, {prover.bn}] {label}: "
+            f"{ms:.1f} ms, peak {peak:.0f} MiB above the {base / 2**20:.0f} "
+            f"MiB allocated before it")
+    check(torch.equal(*out.values()), "the trace LDE in column groups "
+          "differs from the whole one")
+
+
+def phase_chunked128(dev, ex, raw):
+    """The 128-transaction proof of ex (bench.py's options) with a forced
+    chunk of an eighth of its domain: the same bytes as the unchunked
+    proof `raw`."""
+    from certificate_stark_tpu_torch.engine.prover import Prover
+    air = ex.air()
+    prover = Prover(air, device=dev,
+                    chunk=air.trace_length * ex.options.blowup // 8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = prover.prove(ex.trace).to_bytes()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    sha = hashlib.sha256(got).hexdigest()
+    check(got == raw, f"{TX_COUNT} tx: the proof in segments of "
+          f"{prover.chunk} differs from the unchunked one")
+    check(sha == TX128_SHA256, f"{TX_COUNT} tx: proof {sha} differs from "
+          f"the pinned {TX128_SHA256}")
+    log(f"{TX_COUNT} tx, bench options, in {prover.bn // prover.chunk} "
+        f"segments of {prover.chunk}: {ms:.1f} ms (trace build included), "
+        f"equal to the unchunked proof, sha256 {sha} ({len(got)} B)")
+
+
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1520,11 +1761,22 @@ def main():
         return 1
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    mode = sys.argv[1:]
+    witness = start_witness() if mode in ([], ["--tx1024"]) else None
+    try:
+        return run(dev, mode, t_start, witness)
+    finally:
+        if witness is not None and witness[0].is_alive():
+            witness[0].terminate()
+            witness[0].join()
+
+
+def run(dev, mode, t_start, witness):
     phase_versions()
     probe = phase_build()
     sass = phase_sass()
     latency_ns = phase_latency(probe, dev)
-    if sys.argv[1:] == ["--trace"]:
+    if mode == ["--trace"]:
         # the trace kernel's checks and measurements alone, for comparing
         # checkouts
         row = phase_trace_kernel(dev, None, latency_ns)
@@ -1533,7 +1785,7 @@ def main():
         print(json.dumps(dict(trace=row)))
         print(card_line())
         return 0
-    if sys.argv[1:] == ["--rescue"]:
+    if mode == ["--rescue"]:
         # the Rescue kernel's measurements alone, for comparing checkouts
         row = phase_rescue(dev, _randoms(dev))
         prof = phase_profile(dev)
@@ -1542,7 +1794,23 @@ def main():
         print(card_line())
         return 0
     from certificate_stark_tpu_torch.engine.options import ProofOptions
+    from certificate_stark_tpu_torch.engine.prover import Prover
     from certificate_stark_tpu_torch.models import transaction as TX
+    from certificate_stark_tpu_torch.utils import curve as CV
+    if mode == ["--tx1024"]:
+        # the 1024-transaction paths, their kernels' new shapes and the
+        # chunked 128-transaction proof alone
+        phase_hashes(dev, ("blake3",))
+        CV.set_curve("fp2")
+        ex = TX.TransactionExample(TX_COUNT, ProofOptions(**BENCH_OPTS),
+                                   depth=TX_DEPTH, device=dev)
+        raw = Prover(ex.air(), device=dev).prove(ex.trace).to_bytes()
+        phase_chunked128(dev, ex, raw)
+        launches = phase_tx1024(dev, witness, latency_ns)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps(dict(launches_by_path=launches)))
+        print(card_line())
+        return 0
     rows = phase_kernels(dev) + phase_hashes(dev)
     phase_ext(dev)
     phase_grind(dev)
@@ -1562,6 +1830,7 @@ def main():
     prover, raw, tx_launches = phase_tx_full(dev, ex)
     phase_tx_profile(dev, ex, prover)
     phase_tx_plain(dev, ex, raw)
+    phase_chunked128(dev, ex, raw)
     phase_verify(ex, raw, f"{TX_COUNT} tx, bench options")
     # the example CLI's defaults on the same witness
     cli = copy.copy(ex)
@@ -1575,8 +1844,10 @@ def main():
     sha_launches = phase_sha_paths(dev, ex)
     phase_subair_goldens(dev)
     sub_launches, sub_trace_ms = phase_subairs(dev)
+    tx1024_launches = phase_tx1024(dev, witness, latency_ns)
     paths = {"chain1024": chain_launches, "tx128": tx_launches,
-             "tx128_cubic": cli_launches, **sha_launches, **sub_launches}
+             "tx128_cubic": cli_launches, **sha_launches, **sub_launches,
+             **tx1024_launches}
     for row in rows:
         path = ("chain1024" if row["name"] == "rescue_permutation"
                 else "tx128_sha256" if row["name"].startswith("sha256")
