@@ -15,6 +15,9 @@
 // - blake3_merge: one thread per pair of a [8, 2m] level; the single-chunk
 //   hash of the 64 bytes left || right (the JAX package's `merge_pairs`, not
 //   BLAKE3's PARENT node).
+// - blake3_tree: every level of a tree above [8, n] leaves, the same merge,
+//   in one launch (tree.cuh); the prover's trees. blake3_merge stays for
+//   one level (the PoW search of engine/coin.py).
 // Digests are written as [8, B] int64 words (u32 values).
 //
 // Bound on the H100: a 94-element row is 752 bytes read for 12 compressions
@@ -27,6 +30,7 @@
 #include <cuda_runtime.h>
 
 #include "f63.cuh"
+#include "tree.cuh"
 
 __constant__ u32 B3_IV[8] = {0x6a09e667u, 0xbb67ae85u, 0x3c6ef372u,
                              0xa54ff53au, 0x510e527fu, 0x9b05688cu,
@@ -125,23 +129,39 @@ blake3_leaves_kernel(const u64* __restrict__ cols, long long* __restrict__ out,
     for (int i = 0; i < 8; i++) out[(long long)i * n + row] = cv[i];
 }
 
+// One merge: the single-chunk hash of the 64 bytes left || right.
+struct Blake3Merge {
+    __device__ static __forceinline__ void merge(const u32 msg[16],
+                                                 u32 cv[8]) {
+#pragma unroll
+        for (int i = 0; i < 8; i++) cv[i] = B3_IV[i];
+        compress(cv, msg, 64u, CHUNK_START | CHUNK_END | ROOT);
+    }
+};
+
 __global__ void __launch_bounds__(THREADS)
 blake3_merge_kernel(const long long* __restrict__ level,
                     long long* __restrict__ out, long long m) {
     const long long j = (long long)blockIdx.x * THREADS + threadIdx.x;
     if (j >= m) return;
-    u32 msg[16];
+    u32 msg[16], cv[8];
 #pragma unroll
     for (int i = 0; i < 8; i++) {
         msg[i] = (u32)__ldg(level + (long long)i * 2 * m + 2 * j);
         msg[8 + i] = (u32)__ldg(level + (long long)i * 2 * m + 2 * j + 1);
     }
-    u32 cv[8];
-#pragma unroll
-    for (int i = 0; i < 8; i++) cv[i] = B3_IV[i];
-    compress(cv, msg, 64u, CHUNK_START | CHUNK_END | ROOT);
+    Blake3Merge::merge(msg, cv);
 #pragma unroll
     for (int i = 0; i < 8; i++) out[(long long)i * m + j] = cv[i];
+}
+
+// Every level of a tree above leaves [8, n] into out [8, n - 1]
+// (tree.cuh).
+__global__ void __launch_bounds__(TREE_THREADS)
+blake3_tree_kernel(const long long* __restrict__ leaves,
+                   long long* __restrict__ out, const TreeSchedule sc,
+                   int* __restrict__ ctr) {
+    tree_body<Blake3Merge>(leaves, out, sc, ctr);
 }
 
 // cols: [k, n] Montgomery u64; out: [8, n] int64 words.
@@ -164,4 +184,13 @@ extern "C" int blake3_merge_launch(const void* level, void* out, long long m,
                           (cudaStream_t)stream>>>(
         (const long long*)level, (long long*)out, m);
     return (int)cudaGetLastError();
+}
+
+// leaves: [8, n] int64 words; out: [8, n - 1]; sched: the stages of
+// ops/kernels.py tree_schedule; ctr: the gate counters, zero.
+extern "C" int blake3_tree_launch(const void* leaves, void* out,
+                                  const long long* sched, int nstages,
+                                  long long n, void* ctr, void* stream) {
+    return tree_launch(blake3_tree_kernel, leaves, out, sched, nstages, n,
+                       ctr, stream);
 }

@@ -16,6 +16,9 @@
 //   of 17 lanes, with the 0x06 ... 0x80 pad; k/17 + 1 permutations.
 // - sha3_merge: one thread per pair of a [8, 2m] level; the SHA3-256 of the
 //   64 bytes left || right, one permutation.
+// - sha3_tree: every level of a tree above [8, n] leaves, the same merge,
+//   in one launch (tree.cuh); the prover's trees. sha3_merge stays for one
+//   level (the PoW search of engine/coin.py).
 // Digests are written as [8, B] int64 words (u32 values).
 //
 // Bound on the H100: a 94-element row is 752 bytes read for 6 permutations
@@ -29,6 +32,7 @@
 #include <cuda_runtime.h>
 
 #include "f63.cuh"
+#include "tree.cuh"
 
 #define THREADS 128
 #define RATE_LANES 17
@@ -114,6 +118,27 @@ __device__ __forceinline__ void write_digest(const u64 s[25],
     }
 }
 
+// One merge: the SHA3-256 of the 64 bytes left || right, one permutation.
+// Lane i is message words 2i (low half) and 2i + 1.
+struct Sha3Merge {
+    __device__ static __forceinline__ void merge(const u32 msg[16],
+                                                 u32 d[8]) {
+        u64 s[25];
+#pragma unroll
+        for (int i = 0; i < 25; i++) s[i] = 0ull;
+#pragma unroll
+        for (int i = 0; i < 8; i++) s[i] = join32(msg[2 * i], msg[2 * i + 1]);
+        s[8] = 0x06ull;
+        s[RATE_LANES - 1] = 0x8000000000000000ull;
+        keccak_f(s);
+#pragma unroll
+        for (int i = 0; i < 4; i++) {
+            d[2 * i] = lo32(s[i]);
+            d[2 * i + 1] = hi32(s[i]);
+        }
+    }
+};
+
 __global__ void __launch_bounds__(THREADS)
 sha3_leaves_kernel(const u64* __restrict__ cols, long long* __restrict__ out,
                    int k, long long n) {
@@ -148,21 +173,25 @@ sha3_merge_kernel(const long long* __restrict__ level,
                   long long* __restrict__ out, long long m) {
     const long long j = (long long)blockIdx.x * THREADS + threadIdx.x;
     if (j >= m) return;
-    u64 s[25];
+    // words 0..7: the left digest, 8..15: the right one
+    u32 msg[16], d[8];
 #pragma unroll
-    for (int i = 0; i < 25; i++) s[i] = 0ull;
-    // lanes 0..3: the left digest's words, 4..7: the right one's
-#pragma unroll
-    for (int i = 0; i < 4; i++) {
-        const long long* l = level + (long long)(2 * i) * 2 * m;
-        const long long* h = level + (long long)(2 * i + 1) * 2 * m;
-        s[i] = join32((u32)__ldg(l + 2 * j), (u32)__ldg(h + 2 * j));
-        s[4 + i] = join32((u32)__ldg(l + 2 * j + 1), (u32)__ldg(h + 2 * j + 1));
+    for (int i = 0; i < 8; i++) {
+        msg[i] = (u32)__ldg(level + (long long)i * 2 * m + 2 * j);
+        msg[8 + i] = (u32)__ldg(level + (long long)i * 2 * m + 2 * j + 1);
     }
-    s[8] = 0x06ull;
-    s[RATE_LANES - 1] = 0x8000000000000000ull;
-    keccak_f(s);
-    write_digest(s, out, m, j);
+    Sha3Merge::merge(msg, d);
+#pragma unroll
+    for (int i = 0; i < 8; i++) out[(long long)i * m + j] = d[i];
+}
+
+// Every level of a tree above leaves [8, n] into out [8, n - 1]
+// (tree.cuh); each thread keeps its Keccak state in registers.
+__global__ void __launch_bounds__(TREE_THREADS)
+sha3_tree_kernel(const long long* __restrict__ leaves,
+                 long long* __restrict__ out, const TreeSchedule sc,
+                 int* __restrict__ ctr) {
+    tree_body<Sha3Merge>(leaves, out, sc, ctr);
 }
 
 // cols: [k, n] Montgomery u64; out: [8, n] int64 words.
@@ -185,4 +214,13 @@ extern "C" int sha3_merge_launch(const void* level, void* out, long long m,
                         (cudaStream_t)stream>>>(
         (const long long*)level, (long long*)out, m);
     return (int)cudaGetLastError();
+}
+
+// leaves: [8, n] int64 words; out: [8, n - 1]; sched: the stages of
+// ops/kernels.py tree_schedule; ctr: the gate counters, zero.
+extern "C" int sha3_tree_launch(const void* leaves, void* out,
+                                const long long* sched, int nstages,
+                                long long n, void* ctr, void* stream) {
+    return tree_launch(sha3_tree_kernel, leaves, out, sched, nstages, n, ctr,
+                       stream);
 }

@@ -10,13 +10,14 @@ ProofOptions default), `Blake3Hasher` (bench.py's and the example CLI's),
   blake3  BLAKE3-256 digests as 8 u32 LE words; a leaf is the hash of its
           row's elements as 8-byte LE standard form, a merge the hash of the
           64 bytes left || right (the JAX package's `merge_pairs`, not
-          BLAKE3's PARENT node). The device side is csrc/blake3.cu.
+          BLAKE3's PARENT node). The device side is csrc/blake3.cu; a
+          whole tree is one launch (`merge_tree`).
   sha256  SHA-256 digests as 8 u32 BE words (the SHA spec's words); a leaf
           is the hash of its row's 8-byte LE standard-form elements, a merge
           the hash of the 64 bytes of left || right as BE words. The device
           side is csrc/sha256.cu.
-  sha3    SHA3-256 digests as 8 u32 LE words, leaves and merges as for
-          BLAKE3. The device side is csrc/sha3.cu.
+  sha3    SHA3-256 digests as 8 u32 LE words, leaves, merges and trees as
+          for BLAKE3. The device side is csrc/sha3.cu.
 """
 from __future__ import annotations
 
@@ -86,11 +87,26 @@ class _ByteHasher:
             int(w).to_bytes(4, self._order) for w in tuple(d0) + tuple(d1)))
 
 
-class Blake3Hasher(_ByteHasher):
+class _TreeHasher(_ByteHasher):
+    """A byte hasher whose Merkle trees are one tree kernel each (`_tree`)
+    or, with the plain versions, its plain version over `_merge_plain`."""
+
+    def merge_tree(self, leaves):
+        """leaves [8, n] -> every Merkle level, leaves first, root last; the
+        levels above the leaves are views of one [8, n - 1] buffer."""
+        if K.use_plain(leaves):
+            buf = K.tree_plain(self._merge_plain, leaves)
+        else:
+            buf = self._tree(leaves.contiguous())
+        return [leaves] + K.tree_levels_of(buf)
+
+
+class Blake3Hasher(_TreeHasher):
     name = "blake3"
     _order = "little"
     _leaves = staticmethod(K.blake3_leaves)
     _merge = staticmethod(K.blake3_merge)
+    _tree = staticmethod(K.blake3_tree)
     _leaves_plain = staticmethod(K.blake3_leaves_plain)
     _merge_plain = staticmethod(K.blake3_merge_plain)
     _bytes = staticmethod(B3.digest_words)
@@ -106,11 +122,12 @@ class Sha256Hasher(_ByteHasher):
     _bytes = staticmethod(S2.digest_words)
 
 
-class Sha3Hasher(_ByteHasher):
+class Sha3Hasher(_TreeHasher):
     name = "sha3"
     _order = "little"
     _leaves = staticmethod(K.sha3_leaves)
     _merge = staticmethod(K.sha3_merge)
+    _tree = staticmethod(K.sha3_tree)
     _leaves_plain = staticmethod(K.sha3_leaves_plain)
     _merge_plain = staticmethod(K.sha3_merge_plain)
     _bytes = staticmethod(S3.digest_words)

@@ -2,7 +2,10 @@
 
 Counterpart of certificate_stark_tpu/engine/merkle.py and `tree_levels` of
 certificate_stark_tpu/engine/kernels.py. Leaves are digest columns
-[digest_len, n] from a hasher; every level is one batched merge.
+[digest_len, n] from a hasher. A hasher with `merge_tree` (BLAKE3, SHA3)
+builds every level in one call, as views of one [8, n - 1] buffer; the
+others merge level by level. A tree's levels may be either form, or
+separate tensors read back from a checkpoint.
 """
 from __future__ import annotations
 
@@ -11,6 +14,9 @@ import torch
 
 def tree_levels(hasher, leaves):
     """All Merkle levels, leaves first, root ([digest_len, 1]) last."""
+    merge_tree = getattr(hasher, "merge_tree", None)
+    if merge_tree is not None:
+        return merge_tree(leaves)
     levels = [leaves]
     while levels[-1].shape[-1] > 1:
         levels.append(hasher.merge_pairs(levels[-1]))

@@ -8,7 +8,7 @@ Two kernels replace the Pallas kernels of the JAX package
   rescue_permutation  <- pallas_rescue_permutation (:142-160),
                          csrc/rescue_perm.cu
 
-and seven replace XLA code of the JAX package:
+and nine replace XLA code of the JAX package:
 
   blake3_leaves, blake3_merge  <- engine/hasher.py Blake3Hasher
                                   hash_columns / merge_pairs, csrc/blake3.cu
@@ -16,6 +16,10 @@ and seven replace XLA code of the JAX package:
                                   hash_columns / merge_pairs, csrc/sha256.cu
   sha3_leaves, sha3_merge      <- engine/hasher.py Sha3Hasher
                                   hash_columns / merge_pairs, csrc/sha3.cu
+  blake3_tree, sha3_tree       <- engine/kernels.py tree_levels over
+                                  Blake3Hasher / Sha3Hasher merge_pairs:
+                                  every level of a tree in one launch,
+                                  csrc/tree.cuh in blake3.cu and sha3.cu
   transaction_trace            <- models/trace_device.py build_trace_device,
                                   csrc/tx_trace.cu (its plain version is
                                   models/trace_device.py build_trace_plain)
@@ -33,8 +37,10 @@ int64 multiply wraps and `>>` is arithmetic.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -78,7 +84,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = {"f63_mul": "f63_mul.cu", "rescue_perm": "rescue_perm.cu",
            "blake3": "blake3.cu", "sha256": "sha256.cu", "sha3": "sha3.cu",
            "tx_trace": "tx_trace.cu"}
-_HEADERS = ("f63.cuh",)
+_HEADERS = ("f63.cuh", "tree.cuh")
 
 _LIBS: dict = {}
 
@@ -180,6 +186,69 @@ def sha3_merge_plain(level: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Merkle trees in one buffer
+# ---------------------------------------------------------------------------
+# A tree over n = 2^L leaves [8, n] keeps every level above them in one
+# [8, n - 1] buffer: level l (n / 2^l digests, l = 1 .. L) from column
+# n - n / 2^(l-1), the root at column n - 2.
+TREE_LOG2 = 11          # a tree kernel's block owns 2^11 digests at most
+# where that still makes 256 blocks or more (about two an SM of the H100);
+# a smaller tree's blocks own 2^10, so that more SMs share it
+TREE_HALF_BELOW = 256 << TREE_LOG2
+
+# A stage of the tree kernels (csrc/tree.cuh TreeStage, fields in this
+# order): its input level holds m digests (stage 0: the leaves; a later
+# stage: the buffer's columns from src_col), cut into subtrees of `size` =
+# 2^levels digests, one block each, hashed to their roots. A stage after
+# the first runs on the last block of each `size` finished blocks of the
+# stage before, counted at gate counter ctr + unit // size.
+TreeStage = collections.namedtuple("TreeStage",
+                                   "m size levels src_col ctr")
+
+
+def tree_schedule(n: int, s: int = None) -> list:
+    """The stages of a tree kernel over n leaves (a power of two) whose
+    blocks own subtrees of at most 2^s digests (by default 2^11, or 2^10
+    below TREE_HALF_BELOW leaves): stage 0 over the leaves, each later one
+    over the roots of the one before, until one root."""
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"tree_schedule: {n} leaves, expected a power of 2")
+    if s is None:
+        s = TREE_LOG2 - (n < TREE_HALF_BELOW)
+    stages, m, ctr = [], n, 0
+    while m > 1:
+        size = min(1 << s, m)
+        stages.append(TreeStage(m, size, size.bit_length() - 1,
+                                0 if m == n else n - 2 * m, ctr))
+        if m < n:
+            ctr += m // size
+        m //= size
+    return stages
+
+
+def tree_levels_of(buf: torch.Tensor) -> list:
+    """The levels above the leaves, as views of a tree's [8, n - 1] buffer,
+    level 1 first, the root ([8, 1]) last."""
+    views, col, m = [], 0, (buf.shape[1] + 1) // 2
+    while m >= 1:
+        views.append(buf[:, col:col + m])
+        col, m = col + m, m // 2
+    return views
+
+
+def tree_plain(merge_plain, leaves: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch tree: leaves [8, n] -> the [8, n - 1] buffer of every
+    level above them, level by level with `merge_plain`."""
+    buf = torch.empty((8, leaves.shape[1] - 1), dtype=torch.int64,
+                      device=leaves.device)
+    level = leaves
+    for view in tree_levels_of(buf):
+        view[:] = merge_plain(level)
+        level = view
+    return buf
+
+
+# ---------------------------------------------------------------------------
 # build and load
 # ---------------------------------------------------------------------------
 def _nvcc() -> str:
@@ -232,16 +301,20 @@ def build() -> dict:
 
 
 _vp, _ll, _int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# leaves, out, schedule (host int64), stages, n, gate counters, stream
+_TREE_ARGS = [_vp, _vp, ctypes.POINTER(_ll), _int, _ll, _vp, _vp]
 # the C entry points of each library and their argument types
 _ENTRY_POINTS = {
     "f63_mul": {"f63_mul_launch": [_vp, _vp, _vp, _ll, _vp]},
     "rescue_perm": {"rescue_perm_launch": [_vp, _vp, _ll, _vp, _vp, _vp]},
     "blake3": {"blake3_leaves_launch": [_vp, _vp, _int, _ll, _vp],
-               "blake3_merge_launch": [_vp, _vp, _ll, _vp]},
+               "blake3_merge_launch": [_vp, _vp, _ll, _vp],
+               "blake3_tree_launch": _TREE_ARGS},
     "sha256": {"sha256_leaves_launch": [_vp, _vp, _int, _ll, _vp],
                "sha256_merge_launch": [_vp, _vp, _ll, _vp]},
     "sha3": {"sha3_leaves_launch": [_vp, _vp, _int, _ll, _vp],
-             "sha3_merge_launch": [_vp, _vp, _ll, _vp]},
+             "sha3_merge_launch": [_vp, _vp, _ll, _vp],
+             "sha3_tree_launch": _TREE_ARGS},
     "tx_trace": {"transaction_trace_launch":
                  [_vp] * 14 + [_int, _ll, _vp, _vp]},
 }
@@ -364,6 +437,54 @@ def _merge(wrapper, lib: str, level: torch.Tensor):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _tree_args(n: int):
+    """A tree kernel's schedule over n leaves as the C entry point takes it
+    (TreeStage fields, int64), its stage count and its gate counters."""
+    stages = tree_schedule(n)
+    words = [v for st in stages for v in st]
+    return ((_ll * len(words))(*words), len(stages),
+            sum(st.m // st.size for st in stages[1:]))
+
+
+_TREE_CTR: dict = {}
+
+
+def _tree_counters(device, stream: int, count: int) -> torch.Tensor:
+    """Zeroed gate counters of the tree kernels on one stream: a launch
+    leaves them zero, and the launches of one stream run in order."""
+    ctr = _TREE_CTR.get((device, stream))
+    if ctr is None or ctr.numel() < count:
+        ctr = _TREE_CTR[device, stream] = torch.zeros(
+            max(count, 64), dtype=torch.int32, device=device)
+    return ctr
+
+
+def _tree(wrapper, lib: str, leaves: torch.Tensor):
+    """Launch the tree kernel `wrapper.__name__` of library `lib` on
+    [8, n] int64 leaf digests on the card (n a power of two) -> the
+    [8, n - 1] buffer of every level above them; one launch for n > 1."""
+    name = wrapper.__name__
+    if leaves.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {leaves.device}")
+    n = leaves.shape[-1]
+    if leaves.dim() != 2 or leaves.shape[0] != 8 or n < 1 or n & (n - 1):
+        raise ValueError(f"{name}: shape {tuple(leaves.shape)}, expected "
+                         "(8, n) with n a power of two")
+    _check(leaves, f"{name} leaves")
+    out = torch.empty((8, n - 1), dtype=torch.int64, device=leaves.device)
+    if n == 1:
+        return out
+    sched, nstages, nctr = _tree_args(n)
+    stream = torch.cuda.current_stream(leaves.device).cuda_stream
+    ctr = _tree_counters(leaves.device, stream, nctr)
+    _raise_on(getattr(_lib(lib), name + "_launch")(
+        leaves.data_ptr(), out.data_ptr(), sched, nstages, n,
+        ctr.data_ptr(), stream), name)
+    wrapper.launches += 1
+    return out
+
+
 def blake3_leaves(cols: torch.Tensor) -> torch.Tensor:
     """BLAKE3 leaf hashes of the rows of a [k, B] Montgomery int64 tensor
     (k <= 128: one chunk) -> [8, B] int64 digest words."""
@@ -377,6 +498,14 @@ def blake3_merge(level: torch.Tensor) -> torch.Tensor:
     if level.device.type == "cpu":
         return blake3_merge_plain(level)
     return _merge(blake3_merge, "blake3", level)
+
+
+def blake3_tree(leaves: torch.Tensor) -> torch.Tensor:
+    """Every BLAKE3 Merkle level above [8, n] int64 leaf digests, in one
+    [8, n - 1] buffer (tree_levels_of): blake3_merge level by level."""
+    if leaves.device.type == "cpu":
+        return tree_plain(blake3_merge_plain, leaves)
+    return _tree(blake3_tree, "blake3", leaves)
 
 
 def sha256_leaves(cols: torch.Tensor) -> torch.Tensor:
@@ -409,8 +538,16 @@ def sha3_merge(level: torch.Tensor) -> torch.Tensor:
     return _merge(sha3_merge, "sha3", level)
 
 
-for _fn in (blake3_leaves, blake3_merge, sha256_leaves, sha256_merge,
-            sha3_leaves, sha3_merge):
+def sha3_tree(leaves: torch.Tensor) -> torch.Tensor:
+    """Every SHA3-256 Merkle level above [8, n] int64 leaf digests, in one
+    [8, n - 1] buffer (tree_levels_of): sha3_merge level by level."""
+    if leaves.device.type == "cpu":
+        return tree_plain(sha3_merge_plain, leaves)
+    return _tree(sha3_tree, "sha3", leaves)
+
+
+for _fn in (blake3_leaves, blake3_merge, blake3_tree, sha256_leaves,
+            sha256_merge, sha3_leaves, sha3_merge, sha3_tree):
     _fn.launches = 0
 
 # transaction_trace inputs, in the order of the C entry point: name ->
@@ -455,8 +592,8 @@ def transaction_trace(inputs: dict, consts: dict, depth: int) -> torch.Tensor:
 transaction_trace.launches = 0
 
 WRAPPERS = (f63_mul, rescue_permutation, blake3_leaves, blake3_merge,
-            sha256_leaves, sha256_merge, sha3_leaves, sha3_merge,
-            transaction_trace)
+            blake3_tree, sha256_leaves, sha256_merge, sha3_leaves,
+            sha3_merge, sha3_tree, transaction_trace)
 
 
 def reset_launches():

@@ -7,7 +7,10 @@ Builds the port's CUDA kernels from certificate_stark_tpu_torch/csrc and
 holds each against its plain PyTorch version on the card (f63_mul, the
 Rescue permutation at every batch size a chain-1024 proof launches, the
 BLAKE3 leaf and merge kernels at every shape a 128- or 1024-transaction
-proof launches, the transaction trace at 128 transactions, depth 15). Two
+proof launches, the transaction trace at 128 transactions, depth 15; the
+BLAKE3 and SHA3-256 tree kernels, which build every level of a Merkle
+tree in one launch, at every leaf count 2^0 .. 2^21 and BLAKE3 up to
+2^23, beside the per-level merge loop they replace). Two
 main paths run with their launch counts set to 0 just before and read just
 after: the rescue chain of length 1024 (Rescue commitments) and the
 composed state-transition AIR at 128 transactions, depth 15, with bench.py's
@@ -56,6 +59,10 @@ without a result when there is no CUDA device or no port beside it.
 
 runs the 1024-transaction phase alone, with the BLAKE3 kernel checks and
 the chunked 128-transaction proof (~4 minutes, most of it the witness).
+
+    python3 chip_smoke.py --trees
+
+runs the tree kernels' checks and measurements alone.
 """
 import concurrent.futures
 import copy
@@ -155,9 +162,10 @@ PLAIN_SLICE = 1 << 20
 # composition rows of the cubic and base proofs [24 | 8, 2^20], the first
 # FRI layer's [12 | 4, 2^18], then ragged ones and SHA3's rate boundary of
 # 17 elements; BLAKE3 also the 1024-transaction trace rows [94, 2^23].
-# Merge level sizes (pairs): every size a 128-transaction proof launches,
-# and ragged ones; BLAKE3 also every size of a 1024-transaction proof (up
-# to 2^22 pairs). The rows of the kernels line stay at 2^19 pairs.
+# Merge level sizes (pairs): every level of a 128-transaction proof's
+# trees, and ragged ones; BLAKE3 also of a 1024-transaction proof's (up to
+# 2^22 pairs). Since the tree kernels, only SHA-256 trees and the PoW
+# search (2^15 pairs) launch the merges. The rows stay at 2^19 pairs.
 LEAF_SHAPES = ((94, 1 << 20), (8, 1 << 20), (4, 1 << 18), (94, 1000),
                (7, 333), (1, 1), (128, 3), (94, 1 << 23))
 SHA_LEAF_SHAPES = ((94, 1 << 20), (24, 1 << 20), (8, 1 << 20), (12, 1 << 18),
@@ -166,6 +174,14 @@ SHA_LEAF_SHAPES = ((94, 1 << 20), (24, 1 << 20), (8, 1 << 20), (12, 1 << 18),
 MERGE_PAIRS = sorted({1 << e for e in range(20)} | {3, 1000})
 B3_MERGE_PAIRS = sorted(set(MERGE_PAIRS) | {1 << e for e in range(20, 23)})
 ROW_PAIRS = 1 << 19
+# Tree kernel checks (phase_trees): leaf counts 2^0 .. 2^21, which hold a
+# block's subtree S (ops/kernels.py tree_schedule: 2^10 below 2^19 leaves,
+# 2^11 from there) at S/2, S and 2S, and where S changes; BLAKE3 also up to
+# 2^23 (the 1024-transaction trace tree), S^2 = 2^22 and one level either
+# side, where the schedule gains a stage. The rows are at TREE_ROW leaves.
+TREE_SIZES = {"blake3": [1 << e for e in range(24)],
+              "sha3": [1 << e for e in range(22)]}
+TREE_ROW = 1 << 20
 # hash -> (leaf shapes, merge pairs, seed of the random inputs, the lines
 # of certificate_stark_tpu/engine/hasher.py that the leaf and merge kernels
 # replace)
@@ -245,6 +261,24 @@ def log(*args):
 def check(cond, what):
     if not cond:
         raise SystemExit(f"FAILED: {what}")
+
+
+def graph_ms(fn, reps):
+    """Device time of one fn() from a CUDA graph of `reps` calls, which
+    replays the launches with no host work between them (captured after a
+    warm-up on the capture stream)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        for _ in range(reps):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    ms = cuda_ms(g.replay, 5) / reps
+    del g
+    return ms
 
 
 def cuda_ms(fn, reps):
@@ -617,7 +651,7 @@ def phase_grind(dev):
     one Rescue digest a batch of 2^15 nonces) at 12 and 16 bits for BLAKE3
     and Rescue and at 12 bits for SHA-256 and SHA3-256, timed, against the
     host loop over every nonce up to the one it returns (in worker
-    processes, one per CPU core)."""
+    processes, one per CPU core). Returns each search's launch counts."""
     import multiprocessing
     from certificate_stark_tpu_torch.engine.coin import RandomCoin
     from certificate_stark_tpu_torch.engine.hasher import get_hasher
@@ -649,8 +683,8 @@ def phase_grind(dev):
                         if n is not None)
             check(host == nonce, f"{hash_fn} {bits}-bit grinding: the card "
                   f"found {nonce}, the host loop {host}")
-            out[f"{hash_fn}_{bits}"] = dict(nonce=nonce, ms=ms,
-                                            launches=kernel.launches)
+            out[f"grind_{hash_fn}_{bits}"] = {
+                fn.__name__: fn.launches for fn in K.WRAPPERS}
             log(f"grind {hash_fn} {bits} bits on the card: nonce {nonce} "
                 f"(= host loop, {time.perf_counter() - t0:.1f} s on "
                 f"{os.cpu_count()} processes) in {ms:.2f} ms, "
@@ -863,6 +897,89 @@ def phase_hashes(dev, names=tuple(HASH_CHECKS)):
     return rows
 
 
+def _tree_loop(merge, leaves):
+    """The trees before the tree kernels: one merge launch a level."""
+    level = leaves
+    while level.shape[1] > 1:
+        level = merge(level)
+    return level
+
+
+def phase_trees(dev):
+    """The tree kernels (blake3_tree, sha3_tree) against tree_plain on the
+    card, bit for bit on every level, at every leaf count of TREE_SIZES:
+    one launch a tree (none for one leaf). Each size's leaves are the first
+    columns of one seeded random [8, max] tensor, so a size's levels are
+    the first digests of the levels of the largest size's plain tree. Each
+    size timed (CUDA events) beside the whole tree's bound (the leaves read
+    and n - 1 digests written once; n - 1 merges) and beside the per-level
+    loop of the merge kernel it replaces, on the same leaves: each call as
+    the prover makes it (host work included), and on the device alone (a
+    CUDA graph of the calls). Returns the kernels line's rows, at TREE_ROW
+    leaves, with the kernel's registers and shared memory from the ptxas
+    report."""
+    from certificate_stark_tpu_torch.ops import kernels as K
+    t0 = time.perf_counter()
+    rows = []
+    for hash_fn, sizes in TREE_SIZES.items():
+        tree = getattr(K, f"{hash_fn}_tree")
+        merge = getattr(K, f"{hash_fn}_merge")
+        merge_plain = getattr(K, f"{hash_fn}_merge_plain")
+        g = torch.Generator(device=dev).manual_seed(23)
+        leaves = torch.randint(0, 1 << 32, (8, max(sizes)), generator=g,
+                               device=dev, dtype=torch.int64)
+        plain = K.tree_levels_of(K.tree_plain(merge_plain, leaves))
+        err, ms, loop, dev_ms, dev_loop, bnds = 0, {}, {}, {}, {}, {}
+        for n in sizes:
+            x = leaves[:, :n].contiguous()
+            before = tree.launches
+            got = K.tree_levels_of(tree(x))
+            check(tree.launches - before == (n > 1),
+                  f"{tree.__name__}: not one launch at {n} leaves")
+            check(len(got) == n.bit_length() - 1,
+                  f"{tree.__name__}: {len(got)} levels at {n} leaves")
+            for lvl, (a, b) in enumerate(zip(got, plain), 1):
+                err = max(err, int((a - b[:, :a.shape[1]]).abs().max()))
+                check(err == 0, f"{tree.__name__} differs from tree_plain "
+                      f"at {n} leaves, level {lvl}")
+            del got
+            ms[n] = cuda_ms(lambda: tree(x), 10)
+            loop[n] = cuda_ms(lambda: _tree_loop(merge, x), 10)
+            # one leaf: no launch, nothing for a graph to time
+            dev_ms[n] = graph_ms(lambda: tree(x), 10) if n > 1 else 0.0
+            dev_loop[n] = (graph_ms(lambda: _tree_loop(merge, x), 10)
+                           if n > 1 else 0.0)
+            bnds[n] = bound_ms(8 * 8 * (2 * n - 1),
+                               (n - 1) * _merge_ops(hash_fn))[0]
+        log(f"{tree.__name__} ms by leaves, a call (the per-level "
+            f"{merge.__name__} loop), on the device alone (the loop); "
+            "bound: " + ", ".join(
+                f"{n}: {ms[n]:.4f} ({loop[n]:.4f}), {dev_ms[n]:.4f} "
+                f"({dev_loop[n]:.4f}); {bnds[n]:.5f}" for n in sizes))
+        del plain
+        n = TREE_ROW
+        x = leaves[:, :n].contiguous()
+        plain_ms = cuda_ms(lambda: K.tree_plain(merge_plain, x), 2)
+        bnd, by = bound_ms(8 * 8 * (2 * n - 1), (n - 1) * _merge_ops(hash_fn))
+        use = _ptxas_usage(hash_fn, f"{hash_fn}_tree_kernel")
+        log(f"{tree.__name__} [8, {n}]: {ms[n]:.4f} ms, per-level loop "
+            f"{loop[n]:.4f} ms; device alone {dev_ms[n]:.4f}, loop "
+            f"{dev_loop[n]:.4f}; plain {plain_ms:.4f} ms, bound {bnd:.4f} ms "
+            f"({by}); {use}")
+        rows.append(dict(
+            name=tree.__name__, route="cuda",
+            source=f"certificate_stark_tpu_torch/csrc/{hash_fn}.cu",
+            replaces="certificate_stark_tpu/engine/kernels.py:22",
+            max_abs_err=err, ms=ms[n], plain_ms=plain_ms, bound_ms=bnd,
+            bound_by=by, library_ms=None, shape=[8, n], ms_by_leaves=ms,
+            loop_ms_by_leaves=loop, device_ms_by_leaves=dev_ms,
+            loop_device_ms_by_leaves=dev_loop, bound_ms_by_leaves=bnds,
+            **use))
+        del leaves, x
+    log(f"phase_trees: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def _trace_muls(inputs, depth, b3):
     """32-bit multiplies of csrc/tx_trace.cu for these inputs: the Rescue
     rounds, both scalar multiplications' doublings, the mixed additions of
@@ -950,8 +1067,9 @@ def phase_latency(probe, dev):
 
 
 def _ptxas_usage(name, func):
-    """Registers, stack frame and spill bytes a thread of kernel `func`, from
-    the -Xptxas -v report of library `name`."""
+    """Registers, stack frame and spill bytes a thread of kernel `func`, and
+    its static shared memory a block, from the -Xptxas -v report of
+    library `name`."""
     from certificate_stark_tpu_torch.ops import kernels as K
     text = open(K.build()[name] + ".log").read()
     use = {}
@@ -959,6 +1077,7 @@ def _ptxas_usage(name, func):
         if func not in block.splitlines()[0]:
             continue
         for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("smem_bytes", r"(\d+) bytes smem"),
                          ("stack_bytes", r"(\d+) bytes stack frame"),
                          ("spill_store_bytes", r"(\d+) bytes spill stores"),
                          ("spill_load_bytes", r"(\d+) bytes spill loads")):
@@ -1127,8 +1246,13 @@ def phase_tx_goldens(dev):
         log(f"  {name}: {time.perf_counter() - t0:.1f} s with the witness")
 
 
-TX_KERNELS = ("f63_mul", "blake3_leaves", "blake3_merge", "transaction_trace")
-SHA3_KERNELS = ("f63_mul", "sha3_leaves", "sha3_merge", "transaction_trace")
+# the path whose launches a row of the kernels line reports, where it is
+# not the 128-transaction path of its hash: the merge kernels run one level
+# at a time only in the PoW search since the tree kernels
+ROW_PATHS = {"rescue_permutation": "chain1024",
+             "blake3_merge": "grind_blake3_16", "sha3_merge": "grind_sha3_12"}
+TX_KERNELS = ("f63_mul", "blake3_leaves", "blake3_tree", "transaction_trace")
+SHA3_KERNELS = ("f63_mul", "sha3_leaves", "sha3_tree", "transaction_trace")
 SHA256_KERNELS = ("f63_mul", "sha256_leaves", "sha256_merge",
                   "transaction_trace")
 
@@ -1239,6 +1363,9 @@ def _timed_proof(dev, ex, what, need, trace=None, again=True):
     for name in need:
         check(launches[name] > 0, f"{name} was not launched on the main "
               f"path ({what})")
+    for hash_fn in ("blake3", "sha3"):
+        check(launches[f"{hash_fn}_tree"] == launches[f"{hash_fn}_leaves"],
+              f"{what}: not one {hash_fn}_tree launch a commitment")
     check(raw == warm, "two proofs of the same statement differ")
     if again:
         torch.cuda.synchronize()
@@ -1327,8 +1454,9 @@ def profile_tx_proof(ex, prover, what):
     groups = {}
     for name, (t, c) in by_name.items():
         key = next((k for k in ("f63_mul", "blake3_leaves", "blake3_merge",
-                                "sha256_leaves", "sha256_merge",
-                                "sha3_leaves", "sha3_merge",
+                                "blake3_tree", "sha256_leaves",
+                                "sha256_merge", "sha3_leaves", "sha3_merge",
+                                "sha3_tree",
                                 "transaction_trace", "rescue_perm")
                     if k in name), "PyTorch ops")
         gt, gc = groups.get(key, (0.0, 0))
@@ -1785,6 +1913,13 @@ def run(dev, mode, t_start, witness):
         print(json.dumps(dict(trace=row)))
         print(card_line())
         return 0
+    if mode == ["--trees"]:
+        # the tree kernels' checks and measurements alone
+        rows = phase_trees(dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps(dict(trees=rows)))
+        print(card_line())
+        return 0
     if mode == ["--rescue"]:
         # the Rescue kernel's measurements alone, for comparing checkouts
         row = phase_rescue(dev, _randoms(dev))
@@ -1811,9 +1946,9 @@ def run(dev, mode, t_start, witness):
         print(json.dumps(dict(launches_by_path=launches)))
         print(card_line())
         return 0
-    rows = phase_kernels(dev) + phase_hashes(dev)
+    rows = phase_kernels(dev) + phase_hashes(dev) + phase_trees(dev)
     phase_ext(dev)
-    phase_grind(dev)
+    grind_launches = phase_grind(dev)
     phase_golden16(dev)
     chain_launches, chain_ex, chain_proof = phase_full(dev)
     phase_verify(chain_ex, chain_proof.to_bytes(), "chain 1024")
@@ -1847,12 +1982,12 @@ def run(dev, mode, t_start, witness):
     tx1024_launches = phase_tx1024(dev, witness, latency_ns)
     paths = {"chain1024": chain_launches, "tx128": tx_launches,
              "tx128_cubic": cli_launches, **sha_launches, **sub_launches,
-             **tx1024_launches}
+             **tx1024_launches, **grind_launches}
     for row in rows:
-        path = ("chain1024" if row["name"] == "rescue_permutation"
-                else "tx128_sha256" if row["name"].startswith("sha256")
-                else "tx128_sha3_cubic" if row["name"].startswith("sha3")
-                else "tx128_cubic")
+        path = ROW_PATHS.get(row["name"]) or (
+            "tx128_sha256" if row["name"].startswith("sha256")
+            else "tx128_sha3_cubic" if row["name"].startswith("sha3")
+            else "tx128_cubic")
         row["launches"] = paths[path][row["name"]]
         row["path"] = path
         row["launches_by_path"] = {p: n[row["name"]] for p, n in paths.items()}
