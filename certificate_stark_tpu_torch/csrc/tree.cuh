@@ -1,12 +1,13 @@
 // A whole Merkle tree in one launch: every level above the leaves, for a
 // hash whose merge maps 16 message words (left || right digest) to an
-// 8-word digest. Included by blake3.cu and sha3.cu, which instantiate
-// tree_body with their merge.
+// 8-word digest. Included by blake3.cu, sha256.cu and sha3.cu, which
+// instantiate tree_body with their merge.
 //
 // Replaces the per-level loop of certificate_stark_tpu/engine/kernels.py
 // `tree_levels` (:22), one XLA merge a level, which the port first ran as
-// one launch of blake3_merge / sha3_merge a level (a 2^20-leaf tree: 20
-// launches, all but the two largest bound by launch latency).
+// one launch of blake3_merge / sha256_merge / sha3_merge a level (a
+// 2^20-leaf tree: 20 launches, all but the two largest bound by launch
+// latency).
 //
 // Layout: leaves [8, n] int64 words (u32 values), n = 2^L; out [8, n - 1],
 // level l (n / 2^l digests, l = 1 .. L) from column n - n / 2^(l-1); the
@@ -27,9 +28,10 @@
 // last block zeroes its counter, so the counters stay zero between
 // launches.
 //
-// Bound on the H100: n - 1 compressions, so the integer issue rate bounds
-// BLAKE3 and SHA3 trees alike; the leaves and the n - 1 digests cross
-// device memory once (for BLAKE3 nearly as long). What the design leaves
+// Bound on the H100: n - 1 merges (one compression or permutation each,
+// two for SHA-256), so the integer issue rate bounds BLAKE3, SHA-256 and
+// SHA3 trees alike; the leaves and the n - 1 digests cross device memory
+// once (for BLAKE3 nearly as long). What the design leaves
 // on the table: threads idle as a subtree's levels shrink below 256 pairs
 // (a quarter of the work, eight levels of one merge's latency each), and
 // the blocks an SM holds reach those levels together; the top stage runs

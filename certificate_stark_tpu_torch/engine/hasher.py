@@ -10,14 +10,16 @@ ProofOptions default), `Blake3Hasher` (bench.py's and the example CLI's),
   blake3  BLAKE3-256 digests as 8 u32 LE words; a leaf is the hash of its
           row's elements as 8-byte LE standard form, a merge the hash of the
           64 bytes left || right (the JAX package's `merge_pairs`, not
-          BLAKE3's PARENT node). The device side is csrc/blake3.cu; a
-          whole tree is one launch (`merge_tree`).
+          BLAKE3's PARENT node). The device side is csrc/blake3.cu.
   sha256  SHA-256 digests as 8 u32 BE words (the SHA spec's words); a leaf
           is the hash of its row's 8-byte LE standard-form elements, a merge
           the hash of the 64 bytes of left || right as BE words. The device
           side is csrc/sha256.cu.
-  sha3    SHA3-256 digests as 8 u32 LE words, leaves, merges and trees as
-          for BLAKE3. The device side is csrc/sha3.cu.
+  sha3    SHA3-256 digests as 8 u32 LE words, leaves and merges as for
+          BLAKE3. The device side is csrc/sha3.cu.
+
+The three byte hashers build a whole Merkle tree in one kernel launch
+(`merge_tree`); Rescue merges a level at a time (engine/merkle.py).
 """
 from __future__ import annotations
 
@@ -55,8 +57,8 @@ class RescueHasher:
 
 class _ByteHasher:
     """A hasher of bytes: digests of 8 u32 words, whose byte order is the
-    hash's (`_order`). The device side runs the leaf and merge kernels
-    (`_leaves`, `_merge`) or their plain versions."""
+    hash's (`_order`). The device side runs the leaf, merge and tree
+    kernels (`_leaves`, `_merge`, `_tree`) or their plain versions."""
     digest_len = 8  # u32 words
 
     # -- device ------------------------------------------------------------
@@ -71,6 +73,15 @@ class _ByteHasher:
         if K.use_plain(level):
             return self._merge_plain(level)
         return self._merge(level.contiguous())
+
+    def merge_tree(self, leaves):
+        """leaves [8, n] -> every Merkle level, leaves first, root last; the
+        levels above the leaves are views of one [8, n - 1] buffer."""
+        if K.use_plain(leaves):
+            buf = K.tree_plain(self._merge_plain, leaves)
+        else:
+            buf = self._tree(leaves.contiguous())
+        return [leaves] + K.tree_levels_of(buf)
 
     @staticmethod
     def to_host(cols) -> list:
@@ -87,21 +98,7 @@ class _ByteHasher:
             int(w).to_bytes(4, self._order) for w in tuple(d0) + tuple(d1)))
 
 
-class _TreeHasher(_ByteHasher):
-    """A byte hasher whose Merkle trees are one tree kernel each (`_tree`)
-    or, with the plain versions, its plain version over `_merge_plain`."""
-
-    def merge_tree(self, leaves):
-        """leaves [8, n] -> every Merkle level, leaves first, root last; the
-        levels above the leaves are views of one [8, n - 1] buffer."""
-        if K.use_plain(leaves):
-            buf = K.tree_plain(self._merge_plain, leaves)
-        else:
-            buf = self._tree(leaves.contiguous())
-        return [leaves] + K.tree_levels_of(buf)
-
-
-class Blake3Hasher(_TreeHasher):
+class Blake3Hasher(_ByteHasher):
     name = "blake3"
     _order = "little"
     _leaves = staticmethod(K.blake3_leaves)
@@ -117,12 +114,13 @@ class Sha256Hasher(_ByteHasher):
     _order = "big"
     _leaves = staticmethod(K.sha256_leaves)
     _merge = staticmethod(K.sha256_merge)
+    _tree = staticmethod(K.sha256_tree)
     _leaves_plain = staticmethod(K.sha256_leaves_plain)
     _merge_plain = staticmethod(K.sha256_merge_plain)
     _bytes = staticmethod(S2.digest_words)
 
 
-class Sha3Hasher(_TreeHasher):
+class Sha3Hasher(_ByteHasher):
     name = "sha3"
     _order = "little"
     _leaves = staticmethod(K.sha3_leaves)

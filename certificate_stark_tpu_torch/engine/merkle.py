@@ -2,10 +2,10 @@
 
 Counterpart of certificate_stark_tpu/engine/merkle.py and `tree_levels` of
 certificate_stark_tpu/engine/kernels.py. Leaves are digest columns
-[digest_len, n] from a hasher. A hasher with `merge_tree` (BLAKE3, SHA3)
-builds every level in one call, as views of one [8, n - 1] buffer; the
-others merge level by level. A tree's levels may be either form, or
-separate tensors read back from a checkpoint.
+[digest_len, n] from a hasher. A hasher with `merge_tree` (BLAKE3,
+SHA-256, SHA3) builds every level in one call, as views of one [8, n - 1]
+buffer; Rescue merges level by level. A tree's levels may be either form,
+or separate tensors read back from a checkpoint.
 """
 from __future__ import annotations
 

@@ -8,7 +8,7 @@ Two kernels replace the Pallas kernels of the JAX package
   rescue_permutation  <- pallas_rescue_permutation (:142-160),
                          csrc/rescue_perm.cu
 
-and nine replace XLA code of the JAX package:
+and ten replace XLA code of the JAX package:
 
   blake3_leaves, blake3_merge  <- engine/hasher.py Blake3Hasher
                                   hash_columns / merge_pairs, csrc/blake3.cu
@@ -16,10 +16,11 @@ and nine replace XLA code of the JAX package:
                                   hash_columns / merge_pairs, csrc/sha256.cu
   sha3_leaves, sha3_merge      <- engine/hasher.py Sha3Hasher
                                   hash_columns / merge_pairs, csrc/sha3.cu
-  blake3_tree, sha3_tree       <- engine/kernels.py tree_levels over
-                                  Blake3Hasher / Sha3Hasher merge_pairs:
-                                  every level of a tree in one launch,
-                                  csrc/tree.cuh in blake3.cu and sha3.cu
+  blake3_tree, sha256_tree,    <- engine/kernels.py tree_levels over
+  sha3_tree                       Blake3Hasher / Sha256Hasher / Sha3Hasher
+                                  merge_pairs: every level of a tree in one
+                                  launch, csrc/tree.cuh in blake3.cu,
+                                  sha256.cu and sha3.cu
   transaction_trace            <- models/trace_device.py build_trace_device,
                                   csrc/tx_trace.cu (its plain version is
                                   models/trace_device.py build_trace_plain)
@@ -236,9 +237,18 @@ def tree_levels_of(buf: torch.Tensor) -> list:
     return views
 
 
+def _check_tree_leaves(name: str, leaves: torch.Tensor):
+    n = leaves.shape[-1]
+    if leaves.dim() != 2 or leaves.shape[0] != 8 or n < 1 or n & (n - 1):
+        raise ValueError(f"{name}: shape {tuple(leaves.shape)}, expected "
+                         "(8, n) with n a power of two")
+
+
 def tree_plain(merge_plain, leaves: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch tree: leaves [8, n] -> the [8, n - 1] buffer of every
-    level above them, level by level with `merge_plain`."""
+    """Plain PyTorch tree: leaves [8, n] (n a power of two) -> the
+    [8, n - 1] buffer of every level above them, level by level with
+    `merge_plain`."""
+    _check_tree_leaves("tree_plain", leaves)
     buf = torch.empty((8, leaves.shape[1] - 1), dtype=torch.int64,
                       device=leaves.device)
     level = leaves
@@ -311,7 +321,8 @@ _ENTRY_POINTS = {
                "blake3_merge_launch": [_vp, _vp, _ll, _vp],
                "blake3_tree_launch": _TREE_ARGS},
     "sha256": {"sha256_leaves_launch": [_vp, _vp, _int, _ll, _vp],
-               "sha256_merge_launch": [_vp, _vp, _ll, _vp]},
+               "sha256_merge_launch": [_vp, _vp, _ll, _vp],
+               "sha256_tree_launch": _TREE_ARGS},
     "sha3": {"sha3_leaves_launch": [_vp, _vp, _int, _ll, _vp],
              "sha3_merge_launch": [_vp, _vp, _ll, _vp],
              "sha3_tree_launch": _TREE_ARGS},
@@ -467,11 +478,9 @@ def _tree(wrapper, lib: str, leaves: torch.Tensor):
     name = wrapper.__name__
     if leaves.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {leaves.device}")
-    n = leaves.shape[-1]
-    if leaves.dim() != 2 or leaves.shape[0] != 8 or n < 1 or n & (n - 1):
-        raise ValueError(f"{name}: shape {tuple(leaves.shape)}, expected "
-                         "(8, n) with n a power of two")
+    _check_tree_leaves(name, leaves)
     _check(leaves, f"{name} leaves")
+    n = leaves.shape[1]
     out = torch.empty((8, n - 1), dtype=torch.int64, device=leaves.device)
     if n == 1:
         return out
@@ -523,6 +532,14 @@ def sha256_merge(level: torch.Tensor) -> torch.Tensor:
     return _merge(sha256_merge, "sha256", level)
 
 
+def sha256_tree(leaves: torch.Tensor) -> torch.Tensor:
+    """Every SHA-256 Merkle level above [8, n] int64 leaf digests, in one
+    [8, n - 1] buffer (tree_levels_of): sha256_merge level by level."""
+    if leaves.device.type == "cpu":
+        return tree_plain(sha256_merge_plain, leaves)
+    return _tree(sha256_tree, "sha256", leaves)
+
+
 def sha3_leaves(cols: torch.Tensor) -> torch.Tensor:
     """SHA3-256 leaf hashes of the rows of a [k, B] Montgomery int64 tensor
     -> [8, B] int64 LE digest words."""
@@ -547,7 +564,7 @@ def sha3_tree(leaves: torch.Tensor) -> torch.Tensor:
 
 
 for _fn in (blake3_leaves, blake3_merge, blake3_tree, sha256_leaves,
-            sha256_merge, sha3_leaves, sha3_merge, sha3_tree):
+            sha256_merge, sha256_tree, sha3_leaves, sha3_merge, sha3_tree):
     _fn.launches = 0
 
 # transaction_trace inputs, in the order of the C entry point: name ->
@@ -592,8 +609,8 @@ def transaction_trace(inputs: dict, consts: dict, depth: int) -> torch.Tensor:
 transaction_trace.launches = 0
 
 WRAPPERS = (f63_mul, rescue_permutation, blake3_leaves, blake3_merge,
-            blake3_tree, sha256_leaves, sha256_merge, sha3_leaves,
-            sha3_merge, sha3_tree, transaction_trace)
+            blake3_tree, sha256_leaves, sha256_merge, sha256_tree,
+            sha3_leaves, sha3_merge, sha3_tree, transaction_trace)
 
 
 def reset_launches():

@@ -8,9 +8,9 @@ holds each against its plain PyTorch version on the card (f63_mul, the
 Rescue permutation at every batch size a chain-1024 proof launches, the
 BLAKE3 leaf and merge kernels at every shape a 128- or 1024-transaction
 proof launches, the transaction trace at 128 transactions, depth 15; the
-BLAKE3 and SHA3-256 tree kernels, which build every level of a Merkle
-tree in one launch, at every leaf count 2^0 .. 2^21 and BLAKE3 up to
-2^23, beside the per-level merge loop they replace). Two
+BLAKE3, SHA-256 and SHA3-256 tree kernels, which build every level of a
+Merkle tree in one launch, at every leaf count 2^0 .. 2^21 and BLAKE3 up
+to 2^23, beside the per-level merge loop they replace). Two
 main paths run with their launch counts set to 0 just before and read just
 after: the rescue chain of length 1024 (Rescue commitments) and the
 composed state-transition AIR at 128 transactions, depth 15, with bench.py's
@@ -62,7 +62,12 @@ the chunked 128-transaction proof (~4 minutes, most of it the witness).
 
     python3 chip_smoke.py --trees
 
-runs the tree kernels' checks and measurements alone.
+runs the tree kernels' checks and measurements alone, and
+
+    python3 chip_smoke.py --hashes [blake3|sha256|sha3 ...]
+
+the leaf and merge kernels' (all three hashes where none is named), for
+comparing checkouts.
 """
 import concurrent.futures
 import copy
@@ -144,9 +149,12 @@ TX1024_BLOCKS = (0, 341, 682, TX1024 - 1)
 # its pinned proofs: the base one's bytes (the JAX package's verifier
 # accepts them) and the cubic one's sha256
 TX1024_VECTOR = "transaction_1024tx_d15_blake3.json"
-# the 128-transaction proof with bench options
+# the 128-transaction proof with bench options, and with bench options and
+# SHA-256 commitments (sha256 of the bytes, and the length of the latter)
 TX128_SHA256 = ("ccd61384ace1e33ca22fffff156a0250"
                 "d46859ccb4916bd3f1d9ba7096c0dea0")
+TX128_SHA256_PATH = ("9951a3f42437cd53c0be3545640d68dc"
+                     "526e7eae9b4db3898dd2b325d957bceb", 366852)
 # f63_mul checks: the MDS layer of the constraint evaluation ([14, 14, B]
 # for chain 1024 and 128 transactions: the row of the kernels line), and
 # the largest launch of the 1024-transaction path (the cubic composition's
@@ -164,8 +172,8 @@ PLAIN_SLICE = 1 << 20
 # 17 elements; BLAKE3 also the 1024-transaction trace rows [94, 2^23].
 # Merge level sizes (pairs): every level of a 128-transaction proof's
 # trees, and ragged ones; BLAKE3 also of a 1024-transaction proof's (up to
-# 2^22 pairs). Since the tree kernels, only SHA-256 trees and the PoW
-# search (2^15 pairs) launch the merges. The rows stay at 2^19 pairs.
+# 2^22 pairs). Since the tree kernels, only the PoW search (2^15 pairs)
+# launches the merges. The rows stay at 2^19 pairs.
 LEAF_SHAPES = ((94, 1 << 20), (8, 1 << 20), (4, 1 << 18), (94, 1000),
                (7, 333), (1, 1), (128, 3), (94, 1 << 23))
 SHA_LEAF_SHAPES = ((94, 1 << 20), (24, 1 << 20), (8, 1 << 20), (12, 1 << 18),
@@ -180,6 +188,7 @@ ROW_PAIRS = 1 << 19
 # 2^23 (the 1024-transaction trace tree), S^2 = 2^22 and one level either
 # side, where the schedule gains a stage. The rows are at TREE_ROW leaves.
 TREE_SIZES = {"blake3": [1 << e for e in range(24)],
+              "sha256": [1 << e for e in range(22)],
               "sha3": [1 << e for e in range(22)]}
 TREE_ROW = 1 << 20
 # hash -> (leaf shapes, merge pairs, seed of the random inputs, the lines
@@ -798,11 +807,11 @@ def phase_hashes(dev, names=tuple(HASH_CHECKS)):
     """The leaf and merge kernels of each commitment hash `names` of
     HASH_CHECKS against their plain versions on the card, bit for bit, and
     the SHA ones against hashlib on three columns: the leaves at the main
-    paths' shapes and ragged ones, the merges at every level size a
-    128-transaction proof launches (2^0 .. 2^19 pairs; BLAKE3 up to the
+    paths' shapes and ragged ones, the merges at every level size of a
+    128-transaction proof's trees (2^0 .. 2^19 pairs; BLAKE3 up to the
     1024-transaction proof's 2^22) and ragged ones. Each timed at each
     shape beside its bound; the rows are at the first leaf shape and at
-    ROW_PAIRS."""
+    ROW_PAIRS, with each kernel's registers from the ptxas report."""
     from certificate_stark_tpu_torch.ops import kernels as K
     from certificate_stark_tpu_torch.ops import field as F
     from certificate_stark_tpu_torch.ops import sha256 as S2
@@ -860,7 +869,8 @@ def phase_hashes(dev, names=tuple(HASH_CHECKS)):
             replaces=f"certificate_stark_tpu/engine/hasher.py:{lines[0]}",
             max_abs_err=err, ms=ms[f"{k}x{b}"], plain_ms=plain,
             bound_ms=bnd, bound_by=by, library_ms=None, shape=[k, b],
-            ms_by_shape=ms, bound_ms_by_shape=bnds))
+            ms_by_shape=ms, bound_ms_by_shape=bnds,
+            **_ptxas_usage(hash_fn, f"{hash_fn}_leaves_kernel")))
         del x
         err, ms, bnds = 0, {}, {}
         for m in pairs:
@@ -893,7 +903,8 @@ def phase_hashes(dev, names=tuple(HASH_CHECKS)):
             replaces=f"certificate_stark_tpu/engine/hasher.py:{lines[1]}",
             max_abs_err=err, ms=ms[m], plain_ms=plain, bound_ms=bnd,
             bound_by=by, library_ms=None, shape=[8, 2 * m], ms_by_pairs=ms,
-            bound_ms_by_pairs=bnds))
+            bound_ms_by_pairs=bnds,
+            **_ptxas_usage(hash_fn, f"{hash_fn}_merge_kernel")))
     return rows
 
 
@@ -906,18 +917,18 @@ def _tree_loop(merge, leaves):
 
 
 def phase_trees(dev):
-    """The tree kernels (blake3_tree, sha3_tree) against tree_plain on the
-    card, bit for bit on every level, at every leaf count of TREE_SIZES:
-    one launch a tree (none for one leaf). Each size's leaves are the first
-    columns of one seeded random [8, max] tensor, so a size's levels are
-    the first digests of the levels of the largest size's plain tree. Each
-    size timed (CUDA events) beside the whole tree's bound (the leaves read
-    and n - 1 digests written once; n - 1 merges) and beside the per-level
-    loop of the merge kernel it replaces, on the same leaves: each call as
-    the prover makes it (host work included), and on the device alone (a
-    CUDA graph of the calls). Returns the kernels line's rows, at TREE_ROW
-    leaves, with the kernel's registers and shared memory from the ptxas
-    report."""
+    """The tree kernels (blake3_tree, sha256_tree, sha3_tree) against
+    tree_plain on the card, bit for bit on every level, at every leaf count
+    of TREE_SIZES: one launch a tree (none for one leaf). Each size's
+    leaves are the first columns of one seeded random [8, max] tensor, so
+    a size's levels are the first digests of the levels of the largest
+    size's plain tree. Each size timed (CUDA events) beside the whole
+    tree's bound (the leaves read and n - 1 digests written once; n - 1
+    merges) and beside the per-level loop of the merge kernel it replaces,
+    on the same leaves: each call as the prover makes it (host work
+    included), and on the device alone (a CUDA graph of the calls).
+    Returns the kernels line's rows, at TREE_ROW leaves, with the kernel's
+    registers and shared memory from the ptxas report."""
     from certificate_stark_tpu_torch.ops import kernels as K
     t0 = time.perf_counter()
     rows = []
@@ -1250,10 +1261,11 @@ def phase_tx_goldens(dev):
 # not the 128-transaction path of its hash: the merge kernels run one level
 # at a time only in the PoW search since the tree kernels
 ROW_PATHS = {"rescue_permutation": "chain1024",
-             "blake3_merge": "grind_blake3_16", "sha3_merge": "grind_sha3_12"}
+             "blake3_merge": "grind_blake3_16",
+             "sha256_merge": "grind_sha256_12", "sha3_merge": "grind_sha3_12"}
 TX_KERNELS = ("f63_mul", "blake3_leaves", "blake3_tree", "transaction_trace")
 SHA3_KERNELS = ("f63_mul", "sha3_leaves", "sha3_tree", "transaction_trace")
-SHA256_KERNELS = ("f63_mul", "sha256_leaves", "sha256_merge",
+SHA256_KERNELS = ("f63_mul", "sha256_leaves", "sha256_tree",
                   "transaction_trace")
 
 
@@ -1363,7 +1375,7 @@ def _timed_proof(dev, ex, what, need, trace=None, again=True):
     for name in need:
         check(launches[name] > 0, f"{name} was not launched on the main "
               f"path ({what})")
-    for hash_fn in ("blake3", "sha3"):
+    for hash_fn in ("blake3", "sha256", "sha3"):
         check(launches[f"{hash_fn}_tree"] == launches[f"{hash_fn}_leaves"],
               f"{what}: not one {hash_fn}_tree launch a commitment")
     check(raw == warm, "two proofs of the same statement differ")
@@ -1455,7 +1467,8 @@ def profile_tx_proof(ex, prover, what):
     for name, (t, c) in by_name.items():
         key = next((k for k in ("f63_mul", "blake3_leaves", "blake3_merge",
                                 "blake3_tree", "sha256_leaves",
-                                "sha256_merge", "sha3_leaves", "sha3_merge",
+                                "sha256_merge", "sha256_tree",
+                                "sha3_leaves", "sha3_merge",
                                 "sha3_tree",
                                 "transaction_trace", "rescue_perm")
                     if k in name), "PyTorch ops")
@@ -1525,9 +1538,10 @@ def phase_sha_paths(dev, ex):
     CLI's cubic defaults with --hash-fn sha3, and bench.py's options with
     hash_fn sha256. Each: the timed main-path run with its launches, a
     profile, the port's verifier (tampered copies rejected). The sha3 proof
-    is proven again with the plain versions; the sha256 path's plain
-    versions run at 16 transactions (seed 42), on a proof made with the
-    kernels there. Returns the launch counts of both paths."""
+    is proven again with the plain versions; the sha256 proof equals the
+    pinned TX128_SHA256_PATH, and its path's plain versions run at 16
+    transactions (seed 42), on a proof made with the kernels there.
+    Returns the launch counts of both paths."""
     from certificate_stark_tpu_torch.engine.options import ProofOptions
     from certificate_stark_tpu_torch.engine.prover import Prover
     from certificate_stark_tpu_torch.models import transaction as TX
@@ -1547,6 +1561,10 @@ def phase_sha_paths(dev, ex):
         if key == "tx128_sha3_cubic":
             phase_tx_plain(dev, path, raw, what)
             continue
+        sha = hashlib.sha256(raw).hexdigest()
+        check((sha, len(raw)) == TX128_SHA256_PATH,
+              f"{TX_COUNT} tx, {what}: proof {sha} ({len(raw)} B) differs "
+              f"from the pinned {TX128_SHA256_PATH}")
         small = TX.TransactionExample(16, path.options, depth=TX_DEPTH,
                                       seed=42, device=dev)
         small_raw = Prover(small.air(), device=dev).prove(
@@ -1918,6 +1936,13 @@ def run(dev, mode, t_start, witness):
         rows = phase_trees(dev)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps(dict(trees=rows)))
+        print(card_line())
+        return 0
+    if mode[:1] == ["--hashes"]:
+        # the leaf and merge kernels' checks and measurements alone
+        rows = phase_hashes(dev, tuple(mode[1:]) or tuple(HASH_CHECKS))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps(dict(hashes=rows)))
         print(card_line())
         return 0
     if mode == ["--rescue"]:

@@ -1,14 +1,19 @@
 """Whole Merkle trees in one buffer (ops/kernels.py `tree_plain`,
-`tree_schedule`, `blake3_tree` / `sha3_tree`; engine/hasher.py
-`merge_tree`), on the CPU: the plain tree of BLAKE3 and SHA3-256 against
-the JAX package's `tree_levels` with its own hashers, level by level; a
-model of the tree kernels' schedule (csrc/tree.cuh: one block a subtree,
-the last block of each group going on) against the level-by-level tree;
-authentication paths from the buffer's views against separate level
-tensors; and a checkpoint written with separate levels, resumed into the
-same proof bytes. Inputs are seeded numpy arrays fed to both packages.
-Tolerance: exact equality."""
+`tree_schedule`, `blake3_tree` / `sha256_tree` / `sha3_tree`;
+engine/hasher.py `merge_tree`), on the CPU: the plain tree of BLAKE3,
+SHA-256 and SHA3-256 against the JAX package's `tree_levels` with its own
+hashers, level by level; a model of the tree kernels' schedule
+(csrc/tree.cuh: one block a subtree, the last block of each group going
+on) against the level-by-level tree; a Python-int model of csrc/sha256.cu's
+merge (its pad block from the source's constant table) against hashlib and
+the plain merge; authentication paths from the buffer's views against
+separate level tensors; and a checkpoint written with separate levels,
+resumed into the same proof bytes. Inputs are seeded numpy arrays fed to
+both packages. Tolerance: exact equality."""
+import hashlib
+import os
 import random
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,15 +24,19 @@ from certificate_stark_tpu.engine import hasher as JH
 from certificate_stark_tpu.engine import kernels as JK
 from certificate_stark_tpu_torch.engine import merkle as M
 from certificate_stark_tpu_torch.engine.hasher import (Blake3Hasher,
+                                                        Sha256Hasher,
                                                         Sha3Hasher,
                                                         get_hasher)
 from certificate_stark_tpu_torch.engine.options import ProofOptions
 from certificate_stark_tpu_torch.engine.prover import Prover
 from certificate_stark_tpu_torch.models import rescue_chain as RC
 from certificate_stark_tpu_torch.ops import kernels as K
+from certificate_stark_tpu_torch.ops import sha256 as S2
 
 HASHES = {"blake3": (Blake3Hasher, JH.Blake3Hasher, K.blake3_merge_plain,
                      K.blake3_tree),
+          "sha256": (Sha256Hasher, JH.Sha256Hasher, K.sha256_merge_plain,
+                     K.sha256_tree),
           "sha3": (Sha3Hasher, JH.Sha3Hasher, K.sha3_merge_plain,
                    K.sha3_tree)}
 
@@ -167,6 +176,61 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         K._tree(K.sha3_tree, "sha3",
                 torch.zeros((8, 4), dtype=torch.int64, device="meta"))
+    with pytest.raises(ValueError):
+        K.sha256_tree(torch.zeros((8, 4), dtype=torch.int64, device="meta"))
+
+
+@pytest.mark.parametrize("hash_fn", list(HASHES))
+def test_tree_wrappers_refuse_other_leaf_shapes(hash_fn):
+    """A leaf count that is not a power of two, or not 8 words a digest,
+    is refused on the CPU as on the card."""
+    tree = HASHES[hash_fn][3]
+    for shape in ((8, 12), (8, 0), (4, 8)):
+        with pytest.raises(ValueError):
+            tree(torch.zeros(shape, dtype=torch.int64))
+        with pytest.raises(ValueError):
+            K._tree(tree, hash_fn, torch.zeros(shape, dtype=torch.int64,
+                                               device="meta"))
+
+
+def _pad_kw_of_source():
+    """csrc/sha256.cu's PAD_KW table: K[i] + W[i] of the pad block."""
+    with open(os.path.join(K.CSRC, "sha256.cu")) as f:
+        body = re.search(r"PAD_KW\[64\] = \{([^}]*)\}", f.read()).group(1)
+    return [int(v, 16) for v in re.findall(r"0x([0-9a-f]{8})u", body)]
+
+
+def _rounds_kw(state, kw):
+    """csrc/sha256.cu compress_pad64: 64 rounds, each given K[i] + W[i]
+    whole, then the feed-forward."""
+    a, b, c, d, e, f, g, h = state
+    r = S2._rotr
+    for x in kw:
+        t1 = (h + (r(e, 6) ^ r(e, 11) ^ r(e, 25))
+              + ((e & f) ^ ((e ^ S2.M32) & g)) + x)
+        t2 = (r(a, 2) ^ r(a, 13) ^ r(a, 22)) + ((a & b) ^ (a & c) ^ (b & c))
+        a, b, c, d, e, f, g, h = ((t1 + t2) & S2.M32, a, b, c,
+                                  (d + t1) & S2.M32, e, f, g)
+    return [(s + v) & S2.M32 for s, v in zip(state, (a, b, c, d, e, f, g,
+                                                     h))]
+
+
+def test_sha256_kernel_merge_model_matches_hashlib_and_plain():
+    """The kernels' Sha256Merge: one compression of left || right from the
+    IV, then the pad block through the source's constant table, equals
+    hashlib's SHA-256 of the 64 bytes and the plain merge, pair by pair."""
+    kw = _pad_kw_of_source()
+    assert len(kw) == 64
+    words = _leaves(64, 31)
+    plain = K.sha256_merge_plain(torch.from_numpy(words.astype(np.int64)))
+    for j in range(32):
+        msg = [int(v) for v in words[:, 2 * j]] + \
+            [int(v) for v in words[:, 2 * j + 1]]
+        got = _rounds_kw(S2.compress(list(S2.IV), msg), kw)
+        data = b"".join(v.to_bytes(4, "big") for v in msg)
+        exp = [int.from_bytes(hashlib.sha256(data).digest()[4 * i:4 * i + 4],
+                              "big") for i in range(8)]
+        assert got == exp == plain[:, j].tolist(), j
 
 
 @pytest.mark.parametrize("hash_fn", list(HASHES))
