@@ -26,8 +26,8 @@ from .air import Assertion, SequenceAssertion
 class BoundaryGroup:
     key: tuple
     columns: list                # trace columns of the group's assertions
-    b_evals: torch.Tensor        # [g, 1] constant values, [g, bn] sequences
-    inv_z: torch.Tensor          # [bn] inverse divisor on the LDE domain
+    b_evals: torch.Tensor        # [g, 1] constant values, [g, count] sequences
+    inv_z: torch.Tensor          # [count] inverse divisor on the points
     adj: int
     assertions: list
 
@@ -47,18 +47,25 @@ def quotient_degree(key, n):
     return n - 1 - n // key[2]
 
 
-def _divisor_inv(key, n, bn, offset, g_trace, xs):
+def _divisor_inv(key, n, bn, offset, g_trace, xs, j0):
+    """The inverse divisor at the points xs [count] = x_j0 .. of the LDE
+    domain."""
     if key[0] == "s":
         c = F.const(pow(g_trace, key[1], F.P), xs.device)
         return F.batch_inv(F.sub(xs, c))
-    # x^m - c has period bn/m on the coset: invert one period and tile
+    # x^m - c has period bn/m on the coset: invert one period (or the
+    # points' part of it) and tile
     m = n // key[2]
     c = pow(g_trace, key[1] * m, F.P)
     period = bn // m if m <= bn else 1
-    pts = F.mul(F.powers(pow(PH.root_of_unity(bn), m, F.P), period,
-                         xs.device),
-                F.const(pow(offset, m, F.P), xs.device))
-    return F.batch_inv(F.sub(pts, F.const(c, xs.device))).repeat(bn // period)
+    count = xs.shape[-1]
+    span = min(period, count)         # j0 is a multiple of span
+    w_m = pow(PH.root_of_unity(bn), m, F.P)
+    pts = F.mul(F.powers(w_m, span, xs.device),
+                F.const(pow(offset, m, F.P) * pow(w_m, j0 % period, F.P),
+                        xs.device))
+    return F.batch_inv(F.sub(pts, F.const(c, xs.device))) \
+        .repeat(count // span)
 
 
 def _sequence_evals(n, bn, offset, g_trace, first, period, values, device):
@@ -71,21 +78,29 @@ def _sequence_evals(n, bn, offset, g_trace, first, period, values, device):
     return NTT.lde_from_coeffs(F.from_ints(q, device), bn // m, shift)
 
 
-def build_boundary_tables(assertions, n, bn, offset, g_trace, comp_deg, xs):
-    """Per-group tables; xs [bn] are the LDE-domain points (Montgomery)."""
+def build_boundary_tables(assertions, n, bn, offset, g_trace, comp_deg, xs,
+                          j0=0):
+    """Per-group tables; xs [count] are the LDE-domain points j0 ..
+    j0 + count - 1 (Montgomery), all bn of them unless j0 and count name a
+    block of the domain."""
+    count = xs.shape[-1]
     out = []
     for key, group in group_assertions(assertions, n).items():
+        # a sequence's B(x) on a block is a slice of its LDE over the whole
+        # domain: a block is no coset of a subgroup, so no transform of the
+        # block's size gives it, and B at the block's points one by one
+        # costs m = n/period products a point against log2(m) the transform
         if any(isinstance(a, SequenceAssertion) for a in group):
             b_evals = torch.stack([
                 _sequence_evals(n, bn, offset, g_trace, a.first_step,
-                                a.period, a.values, xs.device)
+                                a.period, a.values, xs.device)[j0:j0 + count]
                 if isinstance(a, SequenceAssertion) else
-                F.const(a.value, xs.device).expand(bn)
+                F.const(a.value, xs.device).expand(count)
                 for a in group])
         else:
             b_evals = F.from_ints([[a.value] for a in group], xs.device)
         out.append(BoundaryGroup(
             key=key, columns=[a.column for a in group], b_evals=b_evals,
-            inv_z=_divisor_inv(key, n, bn, offset, g_trace, xs),
+            inv_z=_divisor_inv(key, n, bn, offset, g_trace, xs, j0),
             adj=comp_deg - quotient_degree(key, n), assertions=group))
     return out

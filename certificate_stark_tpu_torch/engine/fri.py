@@ -25,17 +25,23 @@ def inv_xs_table(offset: int, gen: int, count: int, device):
     return F.mul(F.powers(w_inv, count, device), F.const(o_inv, device))
 
 
+def fold_halves(e0, e1, inv_x, xi):
+    """The radix-2 fold of the values e0 at x and e1 at -x [d, *S], with
+    inv_x [*S] = 1/x and the extension scalar xi [d] (Montgomery)."""
+    d = e0.shape[0]
+    inv2 = F.const(pow(2, F.P - 2, F.P), e0.device)
+    s = F.mul(F.add(e0, e1), inv2)
+    t = F.mul(F.sub(e0, e1), F.mul(inv_x, inv2))
+    return F.add(s, XF.ext_mul(t, xi.reshape((d,) + (1,) * (t.dim() - 1)),
+                               d))
+
+
 def fold2(evals, xi, offset: int, gen: int):
     """One radix-2 fold of [d, n] evaluations with the extension scalar xi
     [d] (Montgomery) -> [d, n/2] over the domain o^2*<w^2>."""
-    d, n = evals.shape
-    half = n // 2
-    e0, e1 = evals[:, :half], evals[:, half:]
-    inv2 = F.const(pow(2, F.P - 2, F.P), evals.device)
-    s = F.mul(F.add(e0, e1), inv2)
-    t = F.mul(F.sub(e0, e1), F.mul(inv_xs_table(offset, gen, half,
-                                                evals.device), inv2))
-    return F.add(s, XF.ext_mul(t, xi[:, None], d))
+    half = evals.shape[1] // 2
+    return fold_halves(evals[:, :half], evals[:, half:],
+                       inv_xs_table(offset, gen, half, evals.device), xi)
 
 
 def fold(evals, xi, offset: int, gen: int, folding: int):

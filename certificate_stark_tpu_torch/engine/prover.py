@@ -79,38 +79,60 @@ class Prover:
         self.assertions = air.assertions()
         comp_deg = k * n - 1
 
+        # the domain tables cover the points [j_lo, j_hi) of the LDE domain:
+        # all of it here, a rank's block in the sharded prover
+        self.j_lo, self.j_hi = j_lo, j_hi = self._domain()
+        count = j_hi - j_lo
         # LDE-domain points x_j = offset * gen_big^j
-        self.xs = F.mul(F.powers(gen_big, bn, dev), F.const(offset, dev))
+        self.xs = F.mul(F.powers(gen_big, count, dev),
+                        F.const(offset * pow(gen_big, j_lo, F.P), dev))
         # transition zerofier inverse (x - g^(n-1)) / (x^n - 1); x^n - 1
-        # takes `b` distinct values on the coset
+        # takes `b` distinct values on the coset, in turn (j_lo is a
+        # multiple of b)
         o_n = pow(offset, n, F.P)
         znum = [pow(o_n * pow(gen_big, j * n, F.P) - 1, F.P - 2, F.P)
                 for j in range(b)]
         self.zt_inv = F.mul(
-            F.from_ints(znum, dev).repeat(bn // b),
+            F.from_ints(znum, dev).repeat(count // b),
             F.sub(self.xs, F.const(pow(g_trace, n - 1, F.P), dev)))
         self.t_adjs = [comp_deg - (d.poly_degree(n) - (n - 1))
                        for d in self.degrees]
         self.b_tables = build_boundary_tables(
-            self.assertions, n, bn, offset, g_trace, comp_deg, self.xs)
+            self.assertions, n, bn, offset, g_trace, comp_deg, self.xs, j_lo)
         # x^adj on the domain, per degree adjustment
         self.xpow = {
-            adj: F.mul(F.powers(pow(gen_big, adj, F.P), bn, dev),
-                       F.const(pow(offset, adj, F.P), dev))
+            adj: F.mul(F.powers(pow(gen_big, adj, F.P), count, dev),
+                       F.const(pow(offset, adj, F.P)
+                               * pow(gen_big, adj * j_lo, F.P), dev))
             for adj in sorted(set(self.t_adjs)
                               | {g.adj for g in self.b_tables})}
         per = air.periodic_lde(b, offset, dev)
-        # segment length (bn: unchunked); the periodic columns tiled to one
-        # segment serve every segment
-        self.chunk = S = pick_chunk(bn, per.shape[-1] if per is not None
+        # segment length (count: unchunked); the periodic columns tiled to
+        # one segment serve every segment, since segments start at
+        # multiples of the periodic block. A block shorter than the
+        # periodic block is one segment, read at its offset in the block.
+        self.chunk = S = pick_chunk(count, per.shape[-1] if per is not None
                                     else 1, chunk)
-        self.periodic = (tile_periodic(per, S) if per is not None else
-                         torch.zeros((0, S), dtype=torch.int64, device=dev))
+        if per is None:
+            self.periodic = torch.zeros((0, S), dtype=torch.int64, device=dev)
+        elif S % per.shape[-1] == 0:
+            self.periodic = tile_periodic(per, S)
+        else:
+            self.periodic = per.index_select(
+                1, (torch.arange(j_lo, j_lo + S, device=dev)
+                    % per.shape[-1]))
+
+    def _domain(self):
+        """The LDE-domain points [j_lo, j_hi) this prover's tables and
+        phases cover: the whole domain."""
+        return 0, self.bn
 
     # ------------------------------------------------------------------
     def _segments(self):
-        """The [j0, j1) domain segments of the chunked phases."""
-        return [(j0, j0 + self.chunk) for j0 in range(0, self.bn, self.chunk)]
+        """The [j0, j1) domain segments of the chunked phases, relative to
+        j_lo."""
+        return [(j0, j0 + self.chunk)
+                for j0 in range(0, self.j_hi - self.j_lo, self.chunk)]
 
     def _lde_from_coeffs(self, coeffs):
         """Coefficients [..., n] -> LDE [..., bn]; above the chunk, over
@@ -142,24 +164,26 @@ class Prover:
         """Constraint quotients and boundary terms combined into H(x) with
         the extension coefficients [d, C], segment by segment, split into
         k column polynomials -> (h_coeffs [d, k, n], h_lde [d, k, bn])."""
-        n, k, d = self.n, self.k, self.d
         comp = torch.cat([self._compose(lde, j0, j1, t_alpha, t_beta,
                                         b_alpha, b_beta)
                           for j0, j1 in self._segments()], dim=1)  # [d, bn]
+        h_coeffs = self._split_composition(comp)
+        return h_coeffs, self._lde_from_coeffs(h_coeffs)
+
+    def _split_composition(self, comp):
+        """H's values [d, bn] -> its column polynomials' coefficients
+        [d, k, n]."""
+        n, k, d = self.n, self.k, self.d
         # coefficients over the coset, then H_i(x) with H = sum x^i H_i(x^k)
         o_inv = pow(self.offset, F.P - 2, F.P)
         coeffs = NTT.coset_scale(NTT.intt(comp), o_inv)
-        h_coeffs = coeffs[:, :k * n].reshape(d, n, k).transpose(1, 2) \
+        return coeffs[:, :k * n].reshape(d, n, k).transpose(1, 2) \
             .contiguous()                                       # [d, k, n]
-        return h_coeffs, self._lde_from_coeffs(h_coeffs)
 
     def _compose(self, lde, j0, j1, t_alpha, t_beta, b_alpha, b_beta):
         """H(x) on the domain points [j0, j1) -> [d, j1 - j0]."""
-        dev, bn = self.device, self.bn
-        cur = lde[:, j0:j1]
-        # the next-row frame: points j + b, wrapping at the domain's end
-        nxt = lde.index_select(1, (torch.arange(j0, j1, device=dev)
-                                   + self.b) % bn)
+        dev = self.device
+        cur, nxt = self._frame(lde, j0, j1)
         evals = self.air.evaluate_transition(BASE, cur, nxt, self.periodic)
         # sum_c evals_c * (alpha_c + beta_c * x^adj_c), then / zerofier;
         # base evaluations times extension coefficients, coordinatewise
@@ -184,6 +208,13 @@ class Prover:
             comp = F.add(comp, F.mul(term, grp.inv_z[j0:j1]))
         return comp
 
+    def _frame(self, lde, j0, j1):
+        """The trace LDE's rows at the points [j0, j1) and the next-row
+        frame, the points j + b, wrapping at the domain's end."""
+        nxt = lde.index_select(1, (torch.arange(j0, j1, device=lde.device)
+                                   + self.b) % self.bn)
+        return lde[:, j0:j1], nxt
+
     def ood_points(self, z):
         """z, z*g and z^k of the extension point z [d] -> [d, 3]."""
         zg = F.mul(z, F.const(self.g_trace, z.device))
@@ -195,10 +226,20 @@ class Prover:
     def phase_ood(self, trace_coeffs, h_coeffs, z):
         """Trace polynomials at z and z*g, composition columns at z^k
         -> ood_z [d, w], ood_zg [d, w], ood_h [d, k]."""
-        tbl = XF.ext_powers_dyn(self.ood_points(z), self.n, self.d)
+        tbl = self._ood_table(self.ood_points(z))
         ood = F.mul_sum(trace_coeffs, tbl[:, :2, None, :], dim=-1)
         ood_h = XF.ext_mul_sum(h_coeffs, tbl[:, 2, None, :], self.d, dim=-1)
-        return ood[:, 0], ood[:, 1], ood_h
+        return self._ood_sum(ood[:, 0], ood[:, 1], ood_h)
+
+    def _ood_table(self, pts):
+        """The powers of the OOD points pts [d, 3] that meet the
+        coefficients this prover holds -> [d, 3, n]: 0 .. n-1."""
+        return XF.ext_powers_dyn(pts, self.n, self.d)
+
+    def _ood_sum(self, *parts):
+        """The OOD values from this prover's sums over its coefficients:
+        here they are the values."""
+        return parts
 
     def phase_deep(self, lde, h_lde, ood_z, ood_zg, ood_h, g_z, g_zg, g_h,
                    z):
@@ -242,6 +283,49 @@ class Prover:
         """count extension elements, d draws each -> [d, count]."""
         return XF.from_ints([coin.draw_ext(self.d) for _ in range(count)],
                             self.d, self.device)
+
+    def _fri_layers(self, coin, cur, ck):
+        """The FRI commit phase on the DEEP values cur [d, bn]: a layer's
+        leaf rows committed, the coin reseeded with its root and the
+        folding scalar drawn, until at most fri_max_remainder values are
+        left -> (layers, the remainder [d, size])."""
+        opts, hasher = self.opts, self.hasher
+        fri_layers = []
+        size, o, gw = self.bn, self.offset, self.gen_big
+        fold = opts.fri_folding
+        while size > opts.fri_max_remainder:
+            key = f"fri{len(fri_layers)}"
+            data = ck.load(key) if ck else None
+            if data is not None:
+                rows = data["group"]
+                tree = M.MerkleTree(hasher, ck.unpack_levels(data))
+            else:
+                rows = FRI.leaf_rows(cur, fold)
+                tree = self.commit(rows)
+                if ck:
+                    ck.save_levels(key, {"group": rows}, tree.levels)
+            coin.reseed(tree.root())
+            xi = F.from_ints(coin.draw_ext(self.d), self.device)
+            cur = FRI.fold(cur, xi, o, gw, fold)
+            fri_layers.append(FRI.FriLayer(tree, size, o, gw, rows))
+            size //= fold
+            o = pow(o, fold, F.P)
+            gw = pow(gw, fold, F.P)
+        return fri_layers, cur
+
+    def _grind(self, coin):
+        """The proof-of-work nonce for the coin's state."""
+        return coin.grind(self.opts.grinding_bits, device=self.device)
+
+    def _open(self, tree, rows, idx):
+        """The committed rows [r, m] of `tree` at the leaves idx -> [r, Q]
+        standard-form ints."""
+        return F.to_ints(rows.index_select(
+            1, torch.tensor(idx, dtype=torch.int64, device=rows.device)))
+
+    def _paths(self, trees, indices_list):
+        """Authentication paths, one {index: path} dict per tree."""
+        return M.prove_batch_multi(trees, indices_list)
 
     def checkpointer(self, directory: str):
         """A phase Checkpointer bound to this proving context (the AIR,
@@ -301,7 +385,7 @@ class Prover:
                                                      b_alpha, b_beta)
         mark("constraint eval + composition")
         # committed rows: column i's d coordinates at rows i*d .. i*d + d-1
-        h_rows = h_lde.transpose(0, 1).reshape(k * d, bn)
+        h_rows = h_lde.transpose(0, 1).reshape(k * d, h_lde.shape[-1])
         if data is not None:
             h_tree = M.MerkleTree(hasher, h_levels)
         else:
@@ -331,28 +415,7 @@ class Prover:
                         deep=deep)
         mark("OOD + DEEP")
 
-        fri_layers = []
-        cur = deep
-        size, o, gw = bn, self.offset, self.gen_big
-        fold = opts.fri_folding
-        while size > opts.fri_max_remainder:
-            key = f"fri{len(fri_layers)}"
-            data = ck.load(key) if ck else None
-            if data is not None:
-                rows = data["group"]
-                tree = M.MerkleTree(hasher, ck.unpack_levels(data))
-            else:
-                rows = FRI.leaf_rows(cur, fold)
-                tree = self.commit(rows)
-                if ck:
-                    ck.save_levels(key, {"group": rows}, tree.levels)
-            coin.reseed(tree.root())
-            xi = F.from_ints(coin.draw_ext(d), self.device)
-            cur = FRI.fold(cur, xi, o, gw, fold)
-            fri_layers.append(FRI.FriLayer(tree, size, o, gw, rows))
-            size //= fold
-            o = pow(o, fold, F.P)
-            gw = pow(gw, fold, F.P)
+        fri_layers, cur = self._fri_layers(coin, deep, ck)
         remainder = XF.flat_ints(cur)
         coin.reseed(hasher.host_digest(remainder))
         mark("FRI layers")
@@ -361,24 +424,21 @@ class Prover:
         if data is not None:
             nonce = int(data["nonce"])
         else:
-            nonce = coin.grind(opts.grinding_bits, device=self.device)
+            nonce = self._grind(coin)
             if ck:
                 ck.save("pow", nonce=nonce)
         coin.reseed(hasher.host_digest([nonce]))
         positions = coin.draw_indices(opts.num_queries, bn)
         leaf_idxs, p_cur = [], list(positions)
         for layer in fri_layers:
-            p_cur = [p % (layer.n // fold) for p in p_cur]
+            p_cur = [p % (layer.n // opts.fri_folding) for p in p_cur]
             leaf_idxs.append(p_cur)
 
-        def opened(rows, idx):             # [r, m] at idx -> [r, Q] ints
-            return F.to_ints(rows.index_select(
-                1, torch.tensor(idx, dtype=torch.int64, device=self.device)))
-
-        lde_host, h_host = opened(lde, positions), opened(h_rows, positions)
-        fri_vals = [opened(layer.group, idx)
+        lde_host = self._open(trace_tree, lde, positions)
+        h_host = self._open(h_tree, h_rows, positions)
+        fri_vals = [self._open(layer.tree, layer.group, idx)
                     for layer, idx in zip(fri_layers, leaf_idxs)]
-        all_paths = M.prove_batch_multi(
+        all_paths = self._paths(
             [trace_tree, h_tree] + [layer.tree for layer in fri_layers],
             [positions, positions] + leaf_idxs)
         t_paths, h_paths = all_paths[0], all_paths[1]

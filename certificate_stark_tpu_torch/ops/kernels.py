@@ -296,6 +296,9 @@ def build() -> dict:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT), tmp, path)
     errors = []
+    # each process compiles into its own .tmp and renames it into place
+    # (atomic), so processes that reach this at once never load a partial
+    # library: the ranks of parallel/ load what chip_smoke.py built
     for name, (proc, tmp, path) in procs.items():
         out, _ = proc.communicate()
         with open(path + ".log", "wb") as fh:

@@ -50,8 +50,14 @@ kernel at that size held against its plain version on four transactions'
 row blocks, and two more main paths, bench.py's options and the CLI's
 cubic defaults, timed by phase, verified (tampered copies rejected) and
 equal to the pinned proofs of tests/vectors/transaction_1024tx_d15_blake3;
-the 128-transaction proof in eight segments equals the unchunked one. Any
-mismatch raises. Prints a `kernels` JSON line, the card's name and power
+the 128-transaction proof in eight segments equals the unchunked one.
+The sharded prover (certificate_stark_tpu_torch/parallel/) runs as four
+ranks sharing the one card over gloo (named; `phase_parallel`): the
+16- and 2-transaction goldens, chain 1024 and the 128-transaction proof
+with bench.py's options, equal to their pinned bytes on every rank, with
+each rank's phase spans, collectives, peak memory and launches (the
+128-transaction run is the main path `sharded4_tx128`). Any mismatch
+raises. Prints a `kernels` JSON line, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Exits non-zero
 without a result when there is no CUDA device or no port beside it.
 
@@ -59,6 +65,17 @@ without a result when there is no CUDA device or no port beside it.
 
 runs the 1024-transaction phase alone, with the BLAKE3 kernel checks and
 the chunked 128-transaction proof (~4 minutes, most of it the witness).
+
+    python3 chip_smoke.py --sharded
+
+runs phase_parallel alone, and
+
+    python3 chip_smoke.py --parallel
+
+the sharded prover on four cards, one rank a card over NCCL (fewer cards
+raise): the 128-transaction base, SHA-256 and cubic proofs and the
+1024-transaction base and cubic proofs, each equal to its pinned bytes on
+every rank and timed beside the single card's proof of the same trace.
 
     python3 chip_smoke.py --trees
 
@@ -70,6 +87,7 @@ the leaf and merge kernels' (all three hashes where none is named), for
 comparing checkouts.
 """
 import concurrent.futures
+import contextlib
 import copy
 import hashlib
 import json
@@ -1893,6 +1911,356 @@ def phase_chunked128(dev, ex, raw):
         f"equal to the unchunked proof, sha256 {sha} ({len(got)} B)")
 
 
+# The sharded prover (certificate_stark_tpu_torch/parallel/). The default
+# run's phase_parallel: 4 ranks sharing the one card over gloo (named; the
+# ranks hand their CUDA tensors to gloo through host copies), proving these
+# goldens of tests/vectors/torch_goldens.json and the 128-transaction base
+# proof. `--parallel`: 4 ranks, one card each, over NCCL, proving the 128-
+# and 1024-transaction proofs below, each beside the single-card proof of
+# the same trace in that run.
+PARALLEL_RANKS = 4
+PARALLEL_GOLDENS = ("transaction_16tx_d15_blake3", "rescue_chain1024_rescue",
+                    "transaction_2tx_d3_cubic_blake3")
+# the 128-transaction proof with the example CLI's cubic defaults (the bytes
+# every run since PR 8 printed)
+TX128_CUBIC = ("893676f59d80aa3aca336d0e19113b44"
+               "9595ebde50a782a0da0894f381fa27d8", 395588)
+
+
+def _air_of(recipe):
+    """An AIR from its picklable recipe (kind, trace length, public
+    inputs, options, depth)."""
+    from certificate_stark_tpu_torch.engine.options import ProofOptions
+    from certificate_stark_tpu_torch.models import rescue_chain as RC
+    from certificate_stark_tpu_torch.models import transaction as TX
+    kind, n, pub, od, depth = recipe
+    if kind == "tx":
+        return TX.TransactionAir(n, pub, ProofOptions(**od), depth=depth)
+    return RC.RescueChainAir(n, pub, ProofOptions(**od))
+
+
+def _sharded_rank(mesh, jobs, warm):
+    """One rank of the sharded proofs: for each job, a ShardedProver on
+    the job's AIR and the whole trace (read from the job's file), a warm-up
+    proof where `warm`, then the counted run: launch counts and collective
+    statistics set to 0 just before, read just after, with the phase spans,
+    each collective's ms (the device synchronized around it, so a wait for
+    the slowest rank counts) and the peak device memory; then the wall of
+    a proof with neither spans nor collective timing, the same bytes.
+    Returns {job: its results}."""
+    from certificate_stark_tpu_torch.ops import kernels as K
+    from certificate_stark_tpu_torch.parallel.prover import ShardedProver
+    from certificate_stark_tpu_torch.utils import curve as CV
+    dev = mesh.device
+
+    @contextlib.contextmanager
+    def timed(kind):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize(dev)
+        s = mesh.stats[kind]
+        s["ms"] = s.get("ms", 0.0) + (time.perf_counter() - t0) * 1e3
+
+    out = {}
+    for job in jobs:
+        CV.set_curve("fp2")
+        trace = torch.load(job["trace"], map_location=dev)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        prover = ShardedProver(_air_of(job["air"]), mesh)
+        torch.cuda.synchronize(dev)
+        setup_ms = (time.perf_counter() - t0) * 1e3
+        setup_peak = torch.cuda.max_memory_allocated(dev) - before
+        if warm:
+            prover.prove(trace)
+        spans, t_last = [], [0.0]
+
+        def mark(label):
+            torch.cuda.synchronize(dev)
+            now = time.perf_counter()
+            spans.append((label, (now - t_last[0]) * 1e3))
+            t_last[0] = now
+
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        mesh.reset_stats()
+        K.reset_launches()
+        mesh.timer = timed
+        t0 = t_last[0] = time.perf_counter()
+        try:
+            raw = prover.prove(trace, mark=mark).to_bytes()
+        finally:
+            mesh.timer = None
+        timed_ms = (time.perf_counter() - t0) * 1e3
+        res = dict(
+            raw=raw, timed_ms=timed_ms, setup_ms=setup_ms,
+            setup_peak=setup_peak, spans=spans,
+            stats=copy.deepcopy(mesh.stats),
+            launches={fn.__name__: fn.launches for fn in K.WRAPPERS},
+            peak=torch.cuda.max_memory_allocated(dev),
+            block=(prover.j_lo, prover.j_hi), chunk=prover.chunk)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        again = prover.prove(trace).to_bytes()
+        torch.cuda.synchronize(dev)
+        res["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        check(again == raw, f"sharded {job['name']}: rank {mesh.rank}'s "
+              "proof differs between two runs")
+        out[job["name"]] = res
+        del prover, trace
+        torch.cuda.empty_cache()
+    return out
+
+
+def _save_trace(name, trace):
+    """The trace on the host, in a file under build/ the ranks read."""
+    path = os.path.join(OUT, "parallel", f"{name}.pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(trace.cpu().contiguous(), path)
+    return path
+
+
+def _job(name, ex, trace_path, expected, what):
+    """A sharded proof for the ranks: ex's AIR as a recipe, the file of its
+    trace (_save_trace), the pinned (sha256, length) its bytes must
+    have."""
+    import dataclasses
+    return dict(name=name, what=what, expected=expected, trace=trace_path,
+                air=("tx" if hasattr(ex, "md") else "chain",
+                     ex.air().trace_length, ex.pub_inputs(),
+                     dataclasses.asdict(ex.options),
+                     getattr(ex, "depth", None)))
+
+
+def _report_sharded(jobs, results, backend, singles=None):
+    """Checks that every rank returned the same bytes, equal to the job's
+    pinned (sha256, length), and prints each rank's walls and counted run:
+    set-up, phase spans, collectives (calls, bytes, ms, share of the
+    instrumented wall), peak memory and launches; with the single-card
+    wall of the same proof where `singles` has it. Returns {job: launches
+    summed over the ranks}."""
+    D = len(results)
+    summed = {}
+    for job in jobs:
+        name = job["name"]
+        per = [r[name] for r in results]
+        raws = {p["raw"] for p in per}
+        check(len(raws) == 1, f"sharded {name}: the ranks' proofs differ")
+        raw = per[0]["raw"]
+        sha = hashlib.sha256(raw).hexdigest()
+        check((sha, len(raw)) == job["expected"],
+              f"sharded {name}: proof {sha} ({len(raw)} B) differs from "
+              f"the pinned {job['expected']}")
+        walls = [p["wall_ms"] for p in per]
+        line = (f"sharded {name} ({job['what']}), {D} ranks over "
+                f"{backend}: wall {max(walls):.1f} ms (slowest rank, "
+                f"uninstrumented; {', '.join(f'{w:.1f}' for w in walls)}; "
+                f"instrumented {max(p['timed_ms'] for p in per):.1f})")
+        if singles and name in singles:
+            line += f"; one card, same trace: {singles[name]:.1f} ms"
+        log(line + f"; every rank's proof equals the pinned {sha[:16]}... "
+            f"({len(raw)} B)")
+        for r, p in enumerate(per):
+            coll = sum(s["ms"] for s in p["stats"].values())
+            log(f"  rank {r}: points [{p['block'][0]}, {p['block'][1]}) in "
+                f"segments of {p['chunk']}; set-up {p['setup_ms']:.1f} ms, "
+                f"{p['setup_peak'] / 2**20:.0f} MiB at its peak; "
+                f"collectives {coll:.1f} ms = "
+                f"{100 * coll / p['timed_ms']:.1f}% of its instrumented "
+                f"wall; peak device memory {p['peak'] / 2**20:.0f} MiB")
+            log("    " + "; ".join(f"{lb} {ms:.1f}" for lb, ms in p["spans"]))
+            log("    " + "; ".join(
+                f"{k} {s['calls']} calls {s['bytes'] / 2**20:.2f} MiB "
+                f"{s['ms']:.1f} ms" for k, s in sorted(p["stats"].items())))
+            log(f"    launches {p['launches']}")
+        total = {k: sum(p["launches"][k] for p in per)
+                 for k in per[0]["launches"]}
+        hash_fn = job["air"][3]["hash_fn"]
+        for k in ("f63_mul",) + (("rescue_permutation",) if hash_fn ==
+                                 "rescue" else (f"{hash_fn}_leaves",
+                                                f"{hash_fn}_tree")):
+            check(all(p["launches"][k] > 0 for p in per),
+                  f"sharded {name}: {k} not launched on every rank")
+        summed[name] = total
+    return summed
+
+
+def _remove_traces(jobs):
+    for path in {job["trace"] for job in jobs}:
+        if os.path.exists(path):
+            os.remove(path)
+
+
+def phase_parallel(dev, ex):
+    """The sharded prover on the one card: PARALLEL_RANKS ranks over gloo
+    (named), every rank on cuda:0, proving PARALLEL_GOLDENS and the
+    128-transaction base proof of ex (bench options), each rank's proof
+    equal to the pinned bytes. The kernels are built (phase_build) before
+    the ranks start; the ranks only load them. Returns the launches of the
+    128-transaction run summed over the ranks (`sharded4_tx128`)."""
+    from certificate_stark_tpu_torch.engine.options import ProofOptions
+    from certificate_stark_tpu_torch.models import rescue_chain as RC
+    from certificate_stark_tpu_torch.models import transaction as TX
+    from certificate_stark_tpu_torch.parallel import mesh as PM
+    from certificate_stark_tpu_torch.utils import curve as CV
+    with open(os.path.join(ROOT, "tests", "vectors",
+                           "torch_goldens.json")) as f:
+        goldens = json.load(f)
+    t0 = time.perf_counter()
+    jobs = []
+    for name in PARALLEL_GOLDENS:
+        g = goldens[name]
+        opts = ProofOptions(**g["options"])
+        if "curve" in g:
+            CV.set_curve(g["curve"])
+            gx = TX.TransactionExample(g["num_transactions"], opts,
+                                       depth=g["depth"], seed=g["seed"],
+                                       device=dev)
+        else:
+            gx = RC.RescueChainExample(g["chain_length"], opts, device=dev)
+        jobs.append(_job(name, gx, _save_trace(name, gx.trace),
+                         (g["proof_sha256"], g["proof_len"]), "golden"))
+    jobs.append(_job("tx128", ex, _save_trace("tx128", ex.trace),
+                     (TX128_SHA256, 366852),
+                     f"{TX_COUNT} tx depth {TX_DEPTH}, bench options"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    prep = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    try:
+        results = PM.launch(_sharded_rank, PARALLEL_RANKS, "gloo",
+                            device="cuda:0", args=(jobs, False), timeout=600)
+    finally:
+        _remove_traces(jobs)
+    log(f"phase_parallel: {PARALLEL_RANKS} ranks on one card over gloo: "
+        f"{time.perf_counter() - t0:.1f} s (spawn included), traces and "
+        f"witnesses {prep:.1f} s")
+    launches = _report_sharded(jobs, results, "gloo")
+    return launches["tx128"]
+
+
+def _single_card(dev, air, trace):
+    """The single-card proof of `trace`: a warm-up, then one proof timed
+    on a Prover built before (no trace build) -> (ms, bytes)."""
+    from certificate_stark_tpu_torch.engine.prover import Prover
+    prover = Prover(air, device=dev)
+    prover.prove(trace)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw = prover.prove(trace).to_bytes()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, raw
+
+
+def _launch_nccl(jobs):
+    """The jobs on PARALLEL_RANKS ranks, one card each, over NCCL, every
+    rank warm before its counted runs; the trace files removed after."""
+    from certificate_stark_tpu_torch.parallel import mesh as PM
+    t0 = time.perf_counter()
+    try:
+        results = PM.launch(_sharded_rank, PARALLEL_RANKS, "nccl",
+                            args=(jobs, True), timeout=480)
+    finally:
+        _remove_traces(jobs)
+    log(f"{PARALLEL_RANKS} ranks over nccl, {len(jobs)} proofs: "
+        f"{time.perf_counter() - t0:.1f} s (spawn and warm-ups included)")
+    return results
+
+
+def run_parallel(dev, witness, t_start):
+    """`--parallel`: PARALLEL_RANKS ranks, one card each, over NCCL (fewer
+    cards raise), proving the 128-transaction base, SHA-256 and cubic
+    proofs and the 1024-transaction base and cubic proofs (the witness
+    built once, in the worker start_witness started), each equal to its
+    pinned bytes, each beside the single-card wall of the same trace in
+    this run; every rank warm before its counted run. Every wall is taken
+    after the witness worker has ended, so none shares the host with
+    it."""
+    from certificate_stark_tpu_torch.engine.options import ProofOptions
+    from certificate_stark_tpu_torch.models import transaction as TX
+    from certificate_stark_tpu_torch.utils import curve as CV
+    log(subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                       text=True).stdout)
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    for i, line in enumerate(cards):
+        log(f"card {i}: {line}")
+    check(torch.cuda.device_count() >= PARALLEL_RANKS,
+          f"--parallel needs {PARALLEL_RANKS} cards, "
+          f"{torch.cuda.device_count()} found")
+    with open(os.path.join(ROOT, "tests", "vectors", TX1024_VECTOR)) as f:
+        pin = json.load(f)
+    CV.set_curve("fp2")
+    t0 = time.perf_counter()
+    ex = TX.TransactionExample(TX_COUNT, ProofOptions(**BENCH_OPTS),
+                               depth=TX_DEPTH, device=dev)
+    log(f"witness, {TX_COUNT} tx depth {TX_DEPTH}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    proc, recv = witness
+    t0 = time.perf_counter()
+    big, secs = recv.recv()
+    proc.join()
+    log(f"witness, {TX1024} tx depth {TX_DEPTH} (worker): {secs:.1f} s; "
+        f"waited {time.perf_counter() - t0:.1f} s")
+    big.device = dev
+    jobs, singles = [], {}
+    for base, count, paths in (
+            (ex, TX_COUNT, (
+                ("tx128", BENCH_OPTS, (TX128_SHA256, 366852),
+                 "bench options"),
+                ("tx128_sha256", dict(BENCH_OPTS, hash_fn="sha256"),
+                 TX128_SHA256_PATH, "bench options, SHA-256"),
+                ("tx128_cubic", CLI_OPTS, TX128_CUBIC,
+                 "cubic, BLAKE3 (the example CLI's defaults)"))),
+            (big, TX1024, (
+                ("tx1024", BENCH_OPTS,
+                 (pin["proof_sha256"], pin["proof_len"]), "bench options"),
+                ("tx1024_cubic", CLI_OPTS, (pin["cubic_proof_sha256"],
+                                            pin["cubic_proof_len"]),
+                 "cubic, BLAKE3 (the example CLI's defaults)")))):
+        trace = base.trace
+        trace_path = _save_trace(f"tx{count}", trace)
+        for key, od, expected, what in paths:
+            path = copy.copy(base)
+            path.options = ProofOptions(**od)
+            torch.cuda.reset_peak_memory_stats()
+            singles[key], raw = _single_card(dev, path.air(), trace)
+            check((hashlib.sha256(raw).hexdigest(), len(raw)) == expected,
+                  f"{key}: the single-card proof differs from the pinned one")
+            log(f"{key}: one card {singles[key]:.1f} ms (warm, trace built "
+                "before), peak "
+                f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+            jobs.append(_job(key, path, trace_path, expected,
+                             f"{count} tx depth {TX_DEPTH}, {what}"))
+        del trace
+    del ex, big, base
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    results = _launch_nccl(jobs)
+    launches = _report_sharded(jobs, results, "nccl", singles)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"sharded": {
+        name: dict(launches=launches[name], single_card_ms=singles[name],
+                   wall_ms=[r[name]["wall_ms"] for r in results],
+                   instrumented_ms=[r[name]["timed_ms"] for r in results],
+                   collective_ms=[sum(s["ms"] for s in r[name]["stats"]
+                                      .values()) for r in results],
+                   setup_ms=[r[name]["setup_ms"] for r in results],
+                   peak_mib=[r[name]["peak"] / 2**20 for r in results])
+        for name in singles}}))
+    for line in cards:
+        print(line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1908,7 +2276,8 @@ def main():
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     mode = sys.argv[1:]
-    witness = start_witness() if mode in ([], ["--tx1024"]) else None
+    witness = start_witness() if mode in ([], ["--tx1024"], ["--parallel"]) \
+        else None
     try:
         return run(dev, mode, t_start, witness)
     finally:
@@ -1953,10 +2322,23 @@ def run(dev, mode, t_start, witness):
         print(json.dumps(dict(rescue=row, sass=sass, profile=prof)))
         print(card_line())
         return 0
+    if mode == ["--parallel"]:
+        # the sharded prover on four cards over NCCL
+        return run_parallel(dev, witness, t_start)
     from certificate_stark_tpu_torch.engine.options import ProofOptions
     from certificate_stark_tpu_torch.engine.prover import Prover
     from certificate_stark_tpu_torch.models import transaction as TX
     from certificate_stark_tpu_torch.utils import curve as CV
+    if mode == ["--sharded"]:
+        # the default run's sharded phase alone (four ranks on this card)
+        CV.set_curve("fp2")
+        ex = TX.TransactionExample(TX_COUNT, ProofOptions(**BENCH_OPTS),
+                                   depth=TX_DEPTH, device=dev)
+        launches = phase_parallel(dev, ex)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps(dict(launches_by_path={"sharded4_tx128": launches})))
+        print(card_line())
+        return 0
     if mode == ["--tx1024"]:
         # the 1024-transaction paths, their kernels' new shapes and the
         # chunked 128-transaction proof alone
@@ -1992,6 +2374,7 @@ def run(dev, mode, t_start, witness):
     phase_tx_plain(dev, ex, raw)
     phase_chunked128(dev, ex, raw)
     phase_verify(ex, raw, f"{TX_COUNT} tx, bench options")
+    sharded_launches = phase_parallel(dev, ex)
     # the example CLI's defaults on the same witness
     cli = copy.copy(ex)
     cli.options = ProofOptions(**CLI_OPTS)
@@ -2007,7 +2390,8 @@ def run(dev, mode, t_start, witness):
     tx1024_launches = phase_tx1024(dev, witness, latency_ns)
     paths = {"chain1024": chain_launches, "tx128": tx_launches,
              "tx128_cubic": cli_launches, **sha_launches, **sub_launches,
-             **tx1024_launches, **grind_launches}
+             **tx1024_launches, **grind_launches,
+             "sharded4_tx128": sharded_launches}
     for row in rows:
         path = ROW_PATHS.get(row["name"]) or (
             "tx128_sha256" if row["name"].startswith("sha256")

@@ -170,15 +170,16 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 sys.path.insert(0, sys.argv[1])
 import chip_smoke  # noqa: F401
 # the modules of the extension, verifier and grinding slice, the CLI too,
-# the standalone AIR programs with their trace functions, and the SHA
-# hashers and phase checkpoints
+# the standalone AIR programs with their trace functions, the SHA
+# hashers and phase checkpoints, and the sharded prover
 need = {"certificate_stark_tpu_torch." + m for m in (
     "params.extensions", "ops.extfield", "engine.fieldops", "engine.coin",
     "engine.fri", "engine.verifier", "examples.state_transition",
     "models.range", "models.merkle_init", "models.merkle_update",
     "models.schnorr", "models.trace_device", "utils.curve",
     "utils.curve_batch", "utils.field_ref", "ops.sha256", "ops.sha3",
-    "engine.checkpoint")}
+    "engine.checkpoint", "parallel.mesh", "parallel.ntt",
+    "parallel.prover")}
 assert need <= set(sys.modules), sorted(need - set(sys.modules))
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m == "jax" or m.startswith("jax.")
