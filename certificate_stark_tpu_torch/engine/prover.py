@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import extfield as XF, field as F, ntt as NTT
+from ..ops import extfield as XF, field as F, kernels as K, ntt as NTT
 from ..utils import device as DV, poly_host as PH
 from . import fri as FRI
 from . import merkle as M
@@ -106,6 +106,13 @@ class Prover:
                                * pow(gen_big, adj * j_lo, F.P), dev))
             for adj in sorted(set(self.t_adjs)
                               | {g.adj for g in self.b_tables})}
+        self.comp_tabs = self._compose_tables()
+        # the transaction AIR's evaluation is the transaction_eval kernel;
+        # every other AIR's its own evaluate_transition
+        self.eval_consts = (
+            air.eval_consts(dev)
+            if getattr(air, "native_eval_kind", None) == "transaction"
+            else None)
         per = air.periodic_lde(b, offset, dev)
         # segment length (count: unchunked); the periodic columns tiled to
         # one segment serve every segment, since segments start at
@@ -121,6 +128,43 @@ class Prover:
             self.periodic = per.index_select(
                 1, (torch.arange(j_lo, j_lo + S, device=dev)
                     % per.shape[-1]))
+
+    def _compose_tables(self):
+        """The composition's tables flattened for K.compose (its layout:
+        ops/kernels.py ComposeTables): x^adj stacked [A, count], the
+        boundary groups' inverse divisors [G, count] and the rows of the
+        groups whose values vary [R, count]. self.xpow and each group's
+        inv_z and b_evals become views of them, so nothing is held twice."""
+        dev, count = self.device, self.j_hi - self.j_lo
+        adjs = sorted(self.xpow)
+        row = {adj: i for i, adj in enumerate(adjs)}
+        xpow = torch.stack([self.xpow[adj] for adj in adjs])
+        self.xpow = {adj: xpow[i] for i, adj in enumerate(adjs)}
+        t_groups = [(row[adj], [c for c, a in enumerate(self.t_adjs)
+                                if a == adj])
+                    for adj in sorted(set(self.t_adjs))]
+
+        def stacked(rows):
+            return torch.cat(rows) if rows else torch.empty(
+                (0, count), dtype=torch.int64, device=dev)
+        b_invz = stacked([grp.inv_z[None] for grp in self.b_tables])
+        b_ev = stacked([grp.b_evals for grp in self.b_tables
+                        if grp.b_evals.shape[-1] != 1])
+        index = {id(a): i for i, a in enumerate(self.assertions)}
+        b_groups, r = [], 0
+        for g, grp in enumerate(self.b_tables):
+            grp.inv_z = b_invz[g]
+            k = len(grp.assertions)
+            if grp.b_evals.shape[-1] == 1:         # constants
+                rows, vals = [-1] * k, grp.b_evals[:, 0].tolist()
+            else:
+                grp.b_evals = b_ev[r:r + k]
+                rows, vals, r = list(range(r, r + k)), [0] * k, r + k
+            b_groups.append((row[grp.adj], [
+                (col, index[id(a)], rw, v) for col, a, rw, v in
+                zip(grp.columns, grp.assertions, rows, vals)]))
+        return K.compose_tables(xpow, self.zt_inv, b_invz, b_ev, t_groups,
+                                b_groups)
 
     def _domain(self):
         """The LDE-domain points [j_lo, j_hi) this prover's tables and
@@ -181,32 +225,19 @@ class Prover:
             .contiguous()                                       # [d, k, n]
 
     def _compose(self, lde, j0, j1, t_alpha, t_beta, b_alpha, b_beta):
-        """H(x) on the domain points [j0, j1) -> [d, j1 - j0]."""
-        dev = self.device
+        """H(x) on the domain points [j0, j1) -> [d, j1 - j0]: the
+        transition constraints evaluated on the segment's frame (the
+        transaction_eval kernel for the transaction AIR), then the
+        pointwise composition (the compose kernel)."""
         cur, nxt = self._frame(lde, j0, j1)
-        evals = self.air.evaluate_transition(BASE, cur, nxt, self.periodic)
-        # sum_c evals_c * (alpha_c + beta_c * x^adj_c), then / zerofier;
-        # base evaluations times extension coefficients, coordinatewise
-        comp = F.mul_sum(evals[None], t_alpha[:, :, None], dim=1)  # [d, S]
-        for adj in sorted(set(self.t_adjs)):
-            sel = torch.tensor([i for i, a in enumerate(self.t_adjs)
-                                if a == adj], device=dev)
-            part = F.mul_sum(evals[sel][None], t_beta[:, sel, None], dim=1)
-            comp = F.add(comp, F.mul(part, self.xpow[adj][j0:j1]))
-        comp = F.mul(comp, self.zt_inv[j0:j1])
-        # boundary terms, one divisor group at a time
-        index = {id(a): i for i, a in enumerate(self.assertions)}
-        for grp in self.b_tables:
-            ci = torch.tensor([index[id(a)] for a in grp.assertions],
-                              device=dev)
-            b_evals = grp.b_evals if grp.b_evals.shape[-1] == 1 \
-                else grp.b_evals[:, j0:j1]
-            num = F.sub(cur[grp.columns], b_evals)[None]       # [1, g, S]
-            term = F.add(F.mul_sum(num, b_alpha[:, ci, None], dim=1),
-                         F.mul(F.mul_sum(num, b_beta[:, ci, None], dim=1),
-                               self.xpow[grp.adj][j0:j1]))
-            comp = F.add(comp, F.mul(term, grp.inv_z[j0:j1]))
-        return comp
+        if self.eval_consts is not None:
+            evals = K.transaction_eval(cur, nxt, self.periodic,
+                                       self.eval_consts)
+        else:
+            evals = self.air.evaluate_transition(BASE, cur, nxt,
+                                                 self.periodic)
+        return K.compose(evals, cur, j0, self.comp_tabs, t_alpha, t_beta,
+                         b_alpha, b_beta)
 
     def _frame(self, lde, j0, j1):
         """The trace LDE's rows at the points [j0, j1) and the next-row

@@ -129,13 +129,14 @@ def build_trace(messages, signatures, device=None):
 
 def evaluate_schnorr(fx, current, nxt, agg, ark0, ark1, doubling, addition,
                      digest_flags, pkey, final_flag, hash_flag, copy_hash,
-                     internal):
+                     internal, gen12=None, b3=None):
     """Schnorr constraint block (schnorr/air.rs:394-531), aggregating into
     result slots 0..56 via `agg`. The flags are [1, B]; pkey [12, B] and
-    internal [7, B] come from the composed AIR's copy registers."""
+    internal [7, B] come from the composed AIR's copy registers. gen12 and
+    b3 (standard-form ints) default to the active curve's."""
     one = fx.const(1, current)
-    b3 = CV.B3_LIMBS
-    gen12 = fx.embed(_gen12(), current)
+    b3 = CV.B3_LIMBS if b3 is None else b3
+    gen12 = fx.embed(_gen12() if gen12 is None else gen12, current)
 
     # the two scalar multiplications (S = s*G and h*P) run the same
     # doubling and conditional-add constraints: one EC block on [2, 19, B]

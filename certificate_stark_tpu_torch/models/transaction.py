@@ -22,9 +22,10 @@ from __future__ import annotations
 
 from ..engine.air import Air, Assertion, ConstraintDegree
 from ..engine.prover import Prover
+from ..ops import field as F, rescue as R
 from ..params import data as D
 from ..params.data import P
-from ..utils import device as DV
+from ..utils import curve as CV, device as DV
 from . import merkle_update as MU
 from . import schnorr as SC
 from .constraints import double_and_add, rescue_enforce_round
@@ -176,7 +177,24 @@ class TransactionAir(Air):
             cols.append([D.RESCUE_ARK[i][j] for i in range(8)])
         return cols
 
-    def evaluate_transition(self, fx, current, nxt, periodic):
+    # the prover evaluates this AIR with the transaction_eval kernel
+    # (ops/kernels.py), the JAX package's native-evaluator kind
+    native_eval_kind = "transaction"
+
+    def eval_consts(self, device):
+        """The transaction_eval kernel's constant tables on `device`
+        (Montgomery): the Rescue MDS and inverse MDS, and the active
+        curve's gen12 and b3."""
+        mds, inv_mds, _ = R.tables(device)
+        return dict(mds=mds, inv_mds=inv_mds,
+                    gen12=F.from_ints(CV.GEN12, device),
+                    b3=F.from_ints(CV.B3_LIMBS, device))
+
+    @staticmethod
+    def evaluate_transition(fx, current, nxt, periodic, gen12=None, b3=None):
+        """The 115 transition-constraint slots on frames current / nxt
+        [94, B] with the periodic columns [48, B]; gen12 and b3
+        (standard-form ints) default to the active curve's."""
         def flag(i):                                   # [1, B]
             return fx.col(periodic, i)[None]
         setup, merkle_mask, hash_input, finish = (flag(i) for i in range(4))
@@ -261,7 +279,7 @@ class TransactionAir(Air):
 
         SC.evaluate_schnorr(fx, current, nxt, agg, ark0, ark1, doubling,
                             addition, digest_flags, pkey, final_flag,
-                            schnorr_hash, copy_hash, internal)
+                            schnorr_hash, copy_hash, internal, gen12, b3)
 
         # 6. range proofs on delta and sigma (air.rs:585-609)
         for acc_pos, bit_pos in ((DELTA_ACC, DELTA_BIT),

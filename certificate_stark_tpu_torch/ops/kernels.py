@@ -8,7 +8,7 @@ Two kernels replace the Pallas kernels of the JAX package
   rescue_permutation  <- pallas_rescue_permutation (:142-160),
                          csrc/rescue_perm.cu
 
-and ten replace XLA code of the JAX package:
+and twelve replace XLA code of the JAX package:
 
   blake3_leaves, blake3_merge  <- engine/hasher.py Blake3Hasher
                                   hash_columns / merge_pairs, csrc/blake3.cu
@@ -24,6 +24,12 @@ and ten replace XLA code of the JAX package:
   transaction_trace            <- models/trace_device.py build_trace_device,
                                   csrc/tx_trace.cu (its plain version is
                                   models/trace_device.py build_trace_plain)
+  transaction_eval             <- models/transaction.py evaluate_transition
+                                  and its helpers, csrc/air_eval.cu (its
+                                  plain version runs the port's
+                                  TransactionAir.evaluate_transition)
+  compose                      <- engine/prover.py _pointwise_comp,
+                                  csrc/compose.cu
 
 The CUDA sources are compiled at first use with nvcc for sm_90a, one shared
 library with a plain C interface per source (all compiles started together),
@@ -84,7 +90,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = {"f63_mul": "f63_mul.cu", "rescue_perm": "rescue_perm.cu",
            "blake3": "blake3.cu", "sha256": "sha256.cu", "sha3": "sha3.cu",
-           "tx_trace": "tx_trace.cu"}
+           "tx_trace": "tx_trace.cu", "air_eval": "air_eval.cu",
+           "compose": "compose.cu"}
 _HEADERS = ("f63.cuh", "tree.cuh")
 
 _LIBS: dict = {}
@@ -331,6 +338,18 @@ _ENTRY_POINTS = {
              "sha3_tree_launch": _TREE_ARGS},
     "tx_trace": {"transaction_trace_launch":
                  [_vp] * 14 + [_int, _ll, _vp, _vp]},
+    # cur, nxt, periodic and their row strides, mds, inv_mds, gen12, b3,
+    # S, out, stream
+    "air_eval": {"transaction_eval_launch":
+                 [_vp, _ll, _vp, _ll, _vp, _ll] + [_vp] * 4
+                 + [_ll, _vp, _vp]},
+    # evals, its row stride, C; cur, its row stride; meta, At, NA, G;
+    # xpow, zt_inv, b_invz, b_ev, their row stride, j0; t_alpha, t_beta,
+    # b_alpha, b_beta, NB; d, S, out, stream
+    "compose": {"compose_launch":
+                [_vp, _ll, _int, _vp, _ll, _vp, _int, _int, _int]
+                + [_vp] * 4 + [_ll, _ll] + [_vp] * 4
+                + [_int, _int, _ll, _vp, _vp]},
 }
 
 
@@ -611,9 +630,219 @@ def transaction_trace(inputs: dict, consts: dict, depth: int) -> torch.Tensor:
 
 transaction_trace.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# constraint evaluation and composition
+# ---------------------------------------------------------------------------
+TX_WIDTH, TX_SLOTS, TX_PERIODIC = 94, 115, 48
+TX_CONSTS = (("mds", (14, 14)), ("inv_mds", (14, 14)), ("gen12", (12,)),
+             ("b3", (6,)))
+
+
+def _row_stride(t: torch.Tensor, what: str, device, rows: int, S: int) -> int:
+    """The row stride of a [rows, S] int64 view on `device` whose points
+    (its last axis) are contiguous, as the kernels read it."""
+    if t.dtype != torch.int64:
+        raise TypeError(f"{what}: dtype {t.dtype}, expected torch.int64")
+    if t.device != device:
+        raise ValueError(f"{what}: on {t.device}, expected {device}")
+    if t.dim() != 2 or tuple(t.shape) != (rows, S):
+        raise ValueError(f"{what}: shape {tuple(t.shape)}, expected "
+                         f"({rows}, {S})")
+    if S > 1 and t.stride(1) != 1:
+        raise ValueError(f"{what}: its points are not contiguous")
+    return t.stride(0)
+
+
+def _host_ints(t: torch.Tensor) -> list:
+    """Montgomery int64 values -> standard-form ints, on the host."""
+    return [int(v) for v in mul_plain(t.cpu(), torch.ones(
+        (), dtype=torch.int64)).tolist()]
+
+
+def transaction_eval_plain(cur, nxt, periodic, consts):
+    """Plain PyTorch transaction_eval: models/transaction.py
+    `TransactionAir.evaluate_transition` through the BASE facade with the
+    curve constants gen12 and b3 of `consts`; its MDS layers are
+    ops/rescue.py's, the tables `consts` must hold."""
+    from ..engine.fieldops import BASE
+    from ..models.transaction import TransactionAir
+    from .rescue import INV_MDS, MDS
+    for name, table in (("mds", MDS), ("inv_mds", INV_MDS)):
+        if not torch.equal(consts[name].cpu(), torch.from_numpy(table)):
+            raise ValueError(f"transaction_eval_plain: {name} is not the "
+                             "Rescue table")
+    return TransactionAir.evaluate_transition(
+        BASE, cur, nxt, periodic, gen12=_host_ints(consts["gen12"]),
+        b3=_host_ints(consts["b3"]))
+
+
+def transaction_eval(cur: torch.Tensor, nxt: torch.Tensor,
+                     periodic: torch.Tensor, consts: dict) -> torch.Tensor:
+    """The composed state-transition AIR's 115 transition-constraint slots
+    [115, S] at the S points of the frames cur and nxt [94, S] with the
+    periodic columns [48, S]: views whose points are contiguous, read
+    through their row strides (no copy). `consts`: TransactionAir
+    .eval_consts (mds, inv_mds [14, 14], gen12 [12], b3 [6], Montgomery).
+    The plain version for a CPU tensor or inside plain_versions()."""
+    if use_plain(cur):
+        return transaction_eval_plain(cur, nxt, periodic, consts)
+    if cur.device.type != "cuda":
+        raise ValueError(f"transaction_eval: unsupported device {cur.device}")
+    S = cur.shape[-1]
+    lds = [_row_stride(t, f"transaction_eval {what}", cur.device, rows, S)
+           for t, what, rows in ((cur, "cur", TX_WIDTH), (nxt, "nxt", TX_WIDTH),
+                                 (periodic, "periodic", TX_PERIODIC))]
+    for name, shape in TX_CONSTS:
+        _check(consts[name], f"transaction_eval {name}", cur.device, shape)
+    out = torch.empty((TX_SLOTS, S), dtype=torch.int64, device=cur.device)
+    if S == 0:
+        return out
+    stream = torch.cuda.current_stream(cur.device).cuda_stream
+    _raise_on(_lib("air_eval").transaction_eval_launch(
+        cur.data_ptr(), lds[0], nxt.data_ptr(), lds[1], periodic.data_ptr(),
+        lds[2], *[consts[name].data_ptr() for name, _ in TX_CONSTS], S,
+        out.data_ptr(), stream), "transaction_eval")
+    transaction_eval.launches += 1
+    return out
+
+
+transaction_eval.launches = 0
+
+# The composition's tables over a prover's domain (count points), flattened
+# once per Prover (engine/prover.py `_compose_tables`), as compose and
+# compose_plain take them:
+#   xpow [A, count]     x^adj, one row per degree adjustment
+#   zt_inv [count]      the transition zerofier's inverse
+#   b_invz [G, count]   each boundary group's inverse divisor
+#   b_ev [R, count]     the rows of the groups whose values vary (sequences)
+# and the host lists of the index tables, also on the device in `meta`
+# (int64, in this order): the constraints grouped by degree adjustment,
+# t_idx [C], group g from t_start[g] to t_start[g + 1] [At + 1], its xpow
+# row t_row [At]; the assertions grouped by divisor, b_col [NA] (trace
+# column), b_coef [NA] (its coefficients' column in b_alpha / b_beta),
+# b_row [NA] (its b_ev row, or -1 for a constant), b_val [NA] (that
+# constant, Montgomery), group g from b_start[g] to b_start[g + 1]
+# [G + 1], its xpow row b_adj [G].
+ComposeTables = collections.namedtuple(
+    "ComposeTables", "xpow zt_inv b_invz b_ev meta t_idx t_start t_row "
+    "b_col b_coef b_row b_val b_start b_adj")
+_META = ("t_idx", "t_start", "t_row", "b_col", "b_coef", "b_row", "b_val",
+         "b_start", "b_adj")
+
+
+def compose_tables(xpow, zt_inv, b_invz, b_ev, t_groups, b_groups):
+    """ComposeTables from the domain tables and the groups: t_groups
+    [(xpow row, [constraint])], b_groups [(xpow row, [(trace column,
+    coefficient column, b_ev row or -1, Montgomery constant)])]."""
+    lists = dict(t_idx=[c for _, cs in t_groups for c in cs], t_start=[0],
+                 t_row=[row for row, _ in t_groups], b_col=[], b_coef=[],
+                 b_row=[], b_val=[], b_start=[0],
+                 b_adj=[row for row, _ in b_groups])
+    for _, cs in t_groups:
+        lists["t_start"].append(lists["t_start"][-1] + len(cs))
+    for _, members in b_groups:
+        for col, coef, row, val in members:
+            for key, v in zip(("b_col", "b_coef", "b_row", "b_val"),
+                              (col, coef, row, val)):
+                lists[key].append(v)
+        lists["b_start"].append(len(lists["b_col"]))
+    meta = torch.tensor([v for key in _META for v in lists[key]],
+                        dtype=torch.int64, device=xpow.device)
+    return ComposeTables(xpow=xpow, zt_inv=zt_inv, b_invz=b_invz, b_ev=b_ev,
+                         meta=meta, **lists)
+
+
+def compose_plain(evals, cur, j0, tabs, t_alpha, t_beta, b_alpha, b_beta):
+    """Plain PyTorch compose, on the same tables."""
+    from . import field as F
+    dev, S = evals.device, evals.shape[-1]
+    seg = slice(j0, j0 + S)
+    # sum_c evals_c * (alpha_c + beta_c * x^adj_c), then / zerofier; base
+    # evaluations times extension coefficients, coordinatewise
+    comp = F.mul_sum(evals[None], t_alpha[:, :, None], dim=1)   # [d, S]
+    for g, row in enumerate(tabs.t_row):
+        sel = torch.tensor(tabs.t_idx[tabs.t_start[g]:tabs.t_start[g + 1]],
+                           device=dev)
+        part = F.mul_sum(evals[sel][None], t_beta[:, sel, None], dim=1)
+        comp = F.add(comp, F.mul(part, tabs.xpow[row, seg]))
+    comp = F.mul(comp, tabs.zt_inv[seg])
+    # boundary terms, one divisor group at a time
+    for g, row in enumerate(tabs.b_adj):
+        members = range(tabs.b_start[g], tabs.b_start[g + 1])
+        b_evals = torch.stack([
+            tabs.b_ev[tabs.b_row[a], seg] if tabs.b_row[a] >= 0 else
+            torch.full((S,), tabs.b_val[a], dtype=torch.int64, device=dev)
+            for a in members])
+        ci = torch.tensor([tabs.b_coef[a] for a in members], device=dev)
+        num = F.sub(cur[[tabs.b_col[a] for a in members]], b_evals)[None]
+        term = F.add(F.mul_sum(num, b_alpha[:, ci, None], dim=1),
+                     F.mul(F.mul_sum(num, b_beta[:, ci, None], dim=1),
+                           tabs.xpow[row, seg]))
+        comp = F.add(comp, F.mul(term, tabs.b_invz[g, seg]))
+    return comp
+
+
+def compose(evals: torch.Tensor, cur: torch.Tensor, j0: int,
+            tabs: ComposeTables, t_alpha: torch.Tensor, t_beta: torch.Tensor,
+            b_alpha: torch.Tensor, b_beta: torch.Tensor) -> torch.Tensor:
+    """H(x) at the S points j0 .. j0 + S - 1 of the tables' domain -> [d, S]:
+    sum_c evals_c * (alpha_c + beta_c * x^adj_c) times the transition
+    zerofier's inverse, plus for each boundary group the sum over its
+    assertions of (cur[col] - b_ev) * (alpha + beta * x^adj) times the
+    group's inverse divisor. evals [C, S] and the trace segment cur [w, S]
+    are views whose points are contiguous; t_alpha, t_beta [d, C] and
+    b_alpha, b_beta [d, NB] the extension coefficients (d = 1, 2, 3).
+    The plain version for a CPU tensor or inside plain_versions()."""
+    if use_plain(evals):
+        return compose_plain(evals, cur, j0, tabs, t_alpha, t_beta, b_alpha,
+                             b_beta)
+    dev = evals.device
+    if dev.type != "cuda":
+        raise ValueError(f"compose: unsupported device {dev}")
+    S, C, d = evals.shape[-1], len(tabs.t_idx), t_alpha.shape[0]
+    count = tabs.zt_inv.shape[0]
+    if not 1 <= d <= 3:
+        raise ValueError(f"compose: extension degree {d} not in 1..3")
+    if j0 < 0 or j0 + S > count:
+        raise ValueError(f"compose: points [{j0}, {j0 + S}) outside the "
+                         f"tables' {count}")
+    ev_ld = _row_stride(evals, "compose evals", dev, C, S)
+    cur_ld = _row_stride(cur, "compose cur", dev, cur.shape[0], S)
+    if tabs.b_col and max(tabs.b_col) >= cur.shape[0]:
+        raise ValueError("compose: an assertion's column is outside cur")
+    nb = b_alpha.shape[-1]
+    for t, what, shape in ((t_alpha, "t_alpha", (d, C)),
+                           (t_beta, "t_beta", (d, C)),
+                           (b_alpha, "b_alpha", (d, nb)),
+                           (b_beta, "b_beta", (d, nb)),
+                           (tabs.xpow, "xpow", (len(tabs.xpow), count)),
+                           (tabs.zt_inv, "zt_inv", (count,)),
+                           (tabs.b_invz, "b_invz", (len(tabs.b_adj), count)),
+                           (tabs.b_ev, "b_ev", (len(tabs.b_ev), count)),
+                           (tabs.meta, "meta", (len(tabs.meta),))):
+        _check(t, f"compose {what}", dev, shape)
+    out = torch.empty((d, S), dtype=torch.int64, device=dev)
+    if S == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(_lib("compose").compose_launch(
+        evals.data_ptr(), ev_ld, C, cur.data_ptr(), cur_ld,
+        tabs.meta.data_ptr(), len(tabs.t_row), len(tabs.b_col),
+        len(tabs.b_adj), tabs.xpow.data_ptr(), tabs.zt_inv.data_ptr(),
+        tabs.b_invz.data_ptr(), tabs.b_ev.data_ptr(), count, j0,
+        t_alpha.data_ptr(), t_beta.data_ptr(), b_alpha.data_ptr(),
+        b_beta.data_ptr(), nb, d, S, out.data_ptr(), stream), "compose")
+    compose.launches += 1
+    return out
+
+
+compose.launches = 0
+
 WRAPPERS = (f63_mul, rescue_permutation, blake3_leaves, blake3_merge,
             blake3_tree, sha256_leaves, sha256_merge, sha256_tree,
-            sha3_leaves, sha3_merge, sha3_tree, transaction_trace)
+            sha3_leaves, sha3_merge, sha3_tree, transaction_trace,
+            transaction_eval, compose)
 
 
 def reset_launches():

@@ -10,7 +10,12 @@ BLAKE3 leaf and merge kernels at every shape a 128- or 1024-transaction
 proof launches, the transaction trace at 128 transactions, depth 15; the
 BLAKE3, SHA-256 and SHA3-256 tree kernels, which build every level of a
 Merkle tree in one launch, at every leaf count 2^0 .. 2^21 and BLAKE3 up
-to 2^23, beside the per-level merge loop they replace). Two
+to 2^23, beside the per-level merge loop they replace; the transaction
+AIR's constraint evaluation and the pointwise composition on the
+128-transaction proof's 2^20-point segment, the evaluation with each form
+of the curve constant b3 and the composition at extension degrees 1 and
+3). Every proof path checks one evaluation launch (the transaction AIR's)
+and one composition launch a domain segment. Two
 main paths run with their launch counts set to 0 just before and read just
 after: the rescue chain of length 1024 (Rescue commitments) and the
 composed state-transition AIR at 128 transactions, depth 15, with bench.py's
@@ -79,7 +84,12 @@ every rank and timed beside the single card's proof of the same trace.
 
     python3 chip_smoke.py --trees
 
-runs the tree kernels' checks and measurements alone, and
+runs the tree kernels' checks and measurements alone,
+
+    python3 chip_smoke.py --eval
+
+the evaluation and composition kernels' (on a random trace LDE over the
+128-transaction AIR's tables), and
 
     python3 chip_smoke.py --hashes [blake3|sha256|sha3 ...]
 
@@ -1281,10 +1291,17 @@ def phase_tx_goldens(dev):
 ROW_PATHS = {"rescue_permutation": "chain1024",
              "blake3_merge": "grind_blake3_16",
              "sha256_merge": "grind_sha256_12", "sha3_merge": "grind_sha3_12"}
-TX_KERNELS = ("f63_mul", "blake3_leaves", "blake3_tree", "transaction_trace")
-SHA3_KERNELS = ("f63_mul", "sha3_leaves", "sha3_tree", "transaction_trace")
+# the kernels each main path must launch: the transaction paths the trace,
+# evaluation and composition kernels besides their hash's; the standalone
+# AIRs their own evaluations and the composition kernel (the 128-unit ones
+# the trace kernel too)
+TX_KERNELS = ("f63_mul", "blake3_leaves", "blake3_tree", "transaction_trace",
+              "transaction_eval", "compose")
+SHA3_KERNELS = ("f63_mul", "sha3_leaves", "sha3_tree", "transaction_trace",
+                "transaction_eval", "compose")
 SHA256_KERNELS = ("f63_mul", "sha256_leaves", "sha256_tree",
-                  "transaction_trace")
+                  "transaction_trace", "transaction_eval", "compose")
+SUBAIR_KERNELS = ("f63_mul", "blake3_leaves", "blake3_tree", "compose")
 
 
 def phase_checkpoint(dev):
@@ -1393,6 +1410,16 @@ def _timed_proof(dev, ex, what, need, trace=None, again=True):
     for name in need:
         check(launches[name] > 0, f"{name} was not launched on the main "
               f"path ({what})")
+    # one evaluation (the transaction AIR's) and one composition a segment
+    segments = prover.bn // prover.chunk
+    check(launches["compose"] == segments,
+          f"{what}: {launches['compose']} compose launches, {segments} "
+          "segments")
+    check(launches["transaction_eval"] in (0, segments) and
+          (launches["transaction_eval"] > 0) ==
+          (prover.eval_consts is not None),
+          f"{what}: {launches['transaction_eval']} transaction_eval "
+          f"launches, {segments} segments")
     for hash_fn in ("blake3", "sha256", "sha3"):
         check(launches[f"{hash_fn}_tree"] == launches[f"{hash_fn}_leaves"],
               f"{what}: not one {hash_fn}_tree launch a commitment")
@@ -1488,7 +1515,8 @@ def profile_tx_proof(ex, prover, what):
                                 "sha256_merge", "sha256_tree",
                                 "sha3_leaves", "sha3_merge",
                                 "sha3_tree",
-                                "transaction_trace", "rescue_perm")
+                                "transaction_trace", "transaction_eval",
+                                "compose", "rescue_perm")
                     if k in name), "PyTorch ops")
         gt, gc = groups.get(key, (0.0, 0))
         groups[key] = (gt + t, gc + c)
@@ -1500,9 +1528,11 @@ def profile_tx_proof(ex, prover, what):
 
 def phase_tx_profile(dev, ex, prover):
     """The warm proof's profile (profile_tx_proof), the trace build alone,
-    then the constraint evaluation alone: its launches and device time."""
+    then the first segment's constraint evaluation and composition alone,
+    through the kernels and through the PyTorch route they replaced: wall,
+    device time (CUDA events) and launches. Returns the trace LDE."""
     from torch.profiler import ProfilerActivity, profile
-    from certificate_stark_tpu_torch.engine.fieldops import BASE
+    from certificate_stark_tpu_torch.ops import kernels as K
     profile_tx_proof(ex, prover, f"{TX_COUNT} tx, bench options")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         trace = ex.trace
@@ -1512,19 +1542,181 @@ def phase_tx_profile(dev, ex, prover):
         for name, (t, c) in _device_by_name(prof).items()))
 
     lde = prover.phase_trace(trace)[1]
-    nxt = torch.roll(lde, -prover.b, dims=-1)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prover.air.evaluate_transition(BASE, lde, nxt, prover.periodic)
+    coeffs = _random_coeffs(prover, 1)
+    for what, route in (
+            ("the kernels (transaction_eval, compose)",
+             lambda: prover._compose(lde, 0, prover.chunk, *coeffs)),
+            ("the PyTorch route they replace (the plain versions' ops "
+             "around f63_mul)", lambda: _pytorch_route(prover, lde, coeffs))):
+        route()
         torch.cuda.synchronize()
-        eval_wall = (time.perf_counter() - t0) * 1e3
-    ev = _device_by_name(prof)
-    eval_ms = sum(t for t, _ in ev.values())
-    eval_n = sum(c for _, c in ev.values())
-    log(f"constraint evaluation over {lde.shape[1]} points: wall "
-        f"{eval_wall:.1f} ms, device {eval_ms:.1f} ms in {eval_n} launches "
-        f"(f63_mul {sum(c for n, (_, c) in ev.items() if 'f63_mul' in n)})")
+        K.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            route()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        counts = {fn.__name__: fn.launches for fn in (
+            K.transaction_eval, K.compose, K.f63_mul)}
+        ev = _device_by_name(prof)
+        log(f"constraint evaluation + composition of one {prover.chunk}-point "
+            f"segment through {what}: wall {wall:.1f} ms, device "
+            f"{cuda_ms(route, 3):.1f} ms (CUDA events); launches {counts}, "
+            f"{sum(c for _, c in ev.values())} in the profile")
+    return lde
+
+
+def _random_coeffs(prover, seed, d=None):
+    """Random composition coefficients for prover's AIR in the extension of
+    degree d (the prover's by default): t_alpha, t_beta [d, C], b_alpha,
+    b_beta [d, NB]."""
+    from certificate_stark_tpu_torch.ops import field as F
+    g = torch.Generator(device=prover.device).manual_seed(seed)
+    C, NB = len(prover.degrees), len(prover.assertions)
+    return [torch.randint(0, F.P, (d or prover.d, k), generator=g,
+                          device=prover.device, dtype=torch.int64)
+            for k in (C, C, NB, NB)]
+
+
+def _pytorch_route(prover, lde, coeffs):
+    """The evaluation and composition of the first segment as the prover
+    ran them before the kernels: the plain versions' PyTorch ops, each
+    field multiply an f63_mul launch."""
+    from certificate_stark_tpu_torch.ops import kernels as K
+    cur, nxt = prover._frame(lde, 0, prover.chunk)
+    evals = K.transaction_eval_plain(cur, nxt, prover.periodic,
+                                     prover.eval_consts)
+    return K.compose_plain(evals, cur, 0, prover.comp_tabs, *coeffs)
+
+
+def _eval_muls(form):
+    """32-bit multiplies a point of csrc/air_eval.cu does, the multiply by
+    b3 of `form` taking 6, 9 or 18 Montgomery multiplies: (Montgomery
+    multiplies, squarings, 14-term MDS rows) counted from the kernel, in
+    the units of MULS_PER_MMUL, MULS_PER_MSQR and MULS_PER_MDS_ROW."""
+    b3 = {"subfield": 6, "fp2": 9, "full_fp6": 18}[form]
+    # two doublings and two mixed additions (11 fp6 multiplies and 2 by b3
+    # each), the full addition (12 and 2) and its x * Z check (1)
+    ec = (4 * 11 + 12 + 1) * 18 + 10 * b3
+    mmul = (ec
+            + 2 * (18 * 4 + 2)   # the two points' equalities, bit checks
+            + 9 * 42             # nine Rescue rounds: 28 cubes, 14 flags
+            + 27 + 54            # setup values; key and value copies
+            + 228                # Merkle authentication besides rounds
+            + 85                 # Schnorr's final, limb, hash-row flags
+            + 5)                 # range proofs
+    msqr = 2 + 9 * 28 + 2 + 2    # bit squares; the rounds' cubes
+    rows = 9 * 28                # two MDS layers a round
+    return mmul * MULS_PER_MMUL + msqr * MULS_PER_MSQR + \
+        rows * MULS_PER_MDS_ROW
+
+
+def _compose_cost(tabs, C, d, S):
+    """(bytes, 32-bit multiplies) of compose on S points: each input row
+    read once (constraint values, the assertions' trace columns, x^adj,
+    zerofier, divisors, varying boundary values), d rows written; 2d
+    products a constraint and an assertion, d an adjustment group's x^adj,
+    2d a boundary group's, d the zerofier."""
+    rows = C + len(set(tabs.b_col)) + tabs.xpow.shape[0] + 1 + \
+        tabs.b_invz.shape[0] + tabs.b_ev.shape[0] + d
+    mmul = d * (2 * C + len(tabs.t_row) + 1 + 2 * len(tabs.b_col)
+                + 2 * len(tabs.b_adj))
+    return rows * 8 * S, mmul * MULS_PER_MMUL * S
+
+
+def _plain_timed(fn):
+    """fn() inside plain_versions(), and its wall ms (the device
+    synchronized before and after)."""
+    from certificate_stark_tpu_torch.ops import kernels as K
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with K.plain_versions():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_eval(dev, prover, lde):
+    """transaction_eval and compose on the first 2^20-point segment of the
+    128-transaction proof (`prover`'s tables, the trace LDE `lde`), each
+    bit for bit against its plain version (inside plain_versions()):
+    transaction_eval with every b3 form of _b3_forms(), compose at d = 1
+    and 3 on its output with random coefficients. Both timed (CUDA events),
+    beside their bounds and the plain versions' times, with their
+    registers and spills from the ptxas report. Returns the two rows of
+    the kernels line."""
+    from certificate_stark_tpu_torch.ops import field as F
+    from certificate_stark_tpu_torch.ops import kernels as K
+    S = prover.chunk
+    cur, nxt = prover._frame(lde, 0, S)
+    per = prover.periodic
+    err, ms_by_form, plain_by_form, bound_by_form = 0, {}, {}, {}
+    main_b3 = F.to_ints(prover.eval_consts["b3"]).tolist()
+    for form, b3 in _b3_forms().items():
+        consts = dict(prover.eval_consts, b3=F.from_ints(b3, dev))
+        got = K.transaction_eval(cur, nxt, per, consts)
+        exp, plain_by_form[form] = _plain_timed(
+            lambda: K.transaction_eval(cur, nxt, per, consts))
+        e = int((got - exp).abs().max())
+        if e:
+            bad = (got != exp).any(dim=1).nonzero().flatten().tolist()
+            log(f"  transaction_eval, b3 {form}: slots {bad} differ")
+        err = max(err, e)
+        check(e == 0, f"transaction_eval differs from its plain version "
+              f"(b3 {form})")
+        del got, exp
+        ms_by_form[form] = cuda_ms(
+            lambda: K.transaction_eval(cur, nxt, per, consts), 10)
+        nbytes = (2 * K.TX_WIDTH + K.TX_PERIODIC + K.TX_SLOTS) * 8 * S
+        bound_by_form[form] = bound_ms(nbytes, _eval_muls(form) * S)
+        log(f"transaction_eval == plain ([{K.TX_SLOTS}, {S}], b3 {form}): "
+            f"{ms_by_form[form]:.4f} ms, plain {plain_by_form[form]:.1f} ms, "
+            f"bound {bound_by_form[form][0]:.4f} ms "
+            f"({bound_by_form[form][1]}, {_eval_muls(form)} 32-bit "
+            f"multiplies a point)")
+    main = next(f for f, b3 in _b3_forms().items() if b3 == main_b3)
+    use = _ptxas_usage("air_eval", "transaction_eval")
+    log(f"transaction_eval registers, stack and spills a thread: {use}")
+    rows = [dict(name="transaction_eval", route="cuda",
+                 source="certificate_stark_tpu_torch/csrc/air_eval.cu",
+                 replaces="certificate_stark_tpu/models/transaction.py:237",
+                 max_abs_err=err, ms=ms_by_form[main],
+                 plain_ms=plain_by_form[main],
+                 bound_ms=bound_by_form[main][0],
+                 bound_by=bound_by_form[main][1], library_ms=None,
+                 shape=[K.TX_SLOTS, S], b3=main, ms_by_b3=ms_by_form,
+                 plain_ms_by_b3=plain_by_form,
+                 bound_ms_by_b3={f: b[0] for f, b in bound_by_form.items()},
+                 **use)]
+
+    evals = K.transaction_eval(cur, nxt, per, prover.eval_consts)
+    tabs, C = prover.comp_tabs, evals.shape[0]
+    err, by_d = 0, {}
+    for d in (1, 3):
+        coeffs = _random_coeffs(prover, 10 + d, d)
+        got = K.compose(evals, cur, 0, tabs, *coeffs)
+        exp, plain = _plain_timed(
+            lambda: K.compose(evals, cur, 0, tabs, *coeffs))
+        err = max(err, int((got - exp).abs().max()))
+        check(err == 0, f"compose differs from its plain version (d = {d})")
+        ms = cuda_ms(lambda: K.compose(evals, cur, 0, tabs, *coeffs), 10)
+        nbytes, muls = _compose_cost(tabs, C, d, S)
+        bnd, by = bound_ms(nbytes, muls)
+        use = _ptxas_usage("compose", f"compose_kernelILi{d}E")
+        by_d[d] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                       **use)
+        log(f"compose == plain ([{d}, {S}] from [{C}, {S}] evaluations, "
+            f"{len(tabs.b_col)} assertions in {len(tabs.b_adj)} groups): "
+            f"{ms:.4f} ms, plain {plain:.1f} ms, bound {bnd:.4f} ms ({by}); "
+            f"{use}")
+    main = prover.d if prover.d in by_d else 1
+    rows.append(dict(name="compose", route="cuda",
+                     source="certificate_stark_tpu_torch/csrc/compose.cu",
+                     replaces="certificate_stark_tpu/engine/prover.py:628",
+                     max_abs_err=err, library_ms=None, shape=[main, S],
+                     by_degree=by_d, **{k: by_d[main][k] for k in (
+                         "ms", "plain_ms", "bound_ms", "bound_by")}))
+    return rows
 
 
 def _plain_equal(dev, ex, kernel_raw, what):
@@ -1702,7 +1894,7 @@ def phase_subairs(dev):
         ex = make()
         log(f"witness, {what} (host Python): "
             f"{time.perf_counter() - t0:.1f} s")
-        need = TX_KERNELS if key else TX_KERNELS[:3]
+        need = SUBAIR_KERNELS + (("transaction_trace",) if key else ())
         prover, raw, counts = _timed_proof(dev, ex, what, need)
         if key:
             launches[key] = counts
@@ -2084,6 +2276,14 @@ def _report_sharded(jobs, results, backend, singles=None):
                                                 f"{hash_fn}_tree")):
             check(all(p["launches"][k] > 0 for p in per),
                   f"sharded {name}: {k} not launched on every rank")
+        # one evaluation (transaction AIR) and composition a segment a rank
+        for p in per:
+            segments = (p["block"][1] - p["block"][0]) // p["chunk"]
+            check(p["launches"]["compose"] == segments and
+                  p["launches"]["transaction_eval"] ==
+                  (segments if job["air"][0] == "tx" else 0),
+                  f"sharded {name}: not one transaction_eval and compose "
+                  f"launch a segment on every rank ({p['launches']})")
         summed[name] = total
     return summed
 
@@ -2339,6 +2539,19 @@ def run(dev, mode, t_start, witness):
         print(json.dumps(dict(launches_by_path={"sharded4_tx128": launches})))
         print(card_line())
         return 0
+    if mode == ["--eval"]:
+        # the evaluation and composition kernels alone: the 128-transaction
+        # AIR's tables with a random trace LDE
+        CV.set_curve("fp2")
+        air = TX.TransactionAir(TX_COUNT * TX.CYCLE, ([1] * 7, [2] * 7),
+                                ProofOptions(**BENCH_OPTS), depth=TX_DEPTH)
+        prover = Prover(air, device=dev)
+        rows = phase_eval(dev, prover,
+                          _randoms(dev)(TX.TRACE_WIDTH, prover.bn))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps(dict(eval=rows)))
+        print(card_line())
+        return 0
     if mode == ["--tx1024"]:
         # the 1024-transaction paths, their kernels' new shapes and the
         # chunked 128-transaction proof alone
@@ -2370,7 +2583,9 @@ def run(dev, mode, t_start, witness):
         f"{time.perf_counter() - t0:.1f} s")
     rows.append(phase_trace_kernel(dev, ex, latency_ns))
     prover, raw, tx_launches = phase_tx_full(dev, ex)
-    phase_tx_profile(dev, ex, prover)
+    lde = phase_tx_profile(dev, ex, prover)
+    rows += phase_eval(dev, prover, lde)
+    del lde
     phase_tx_plain(dev, ex, raw)
     phase_chunked128(dev, ex, raw)
     phase_verify(ex, raw, f"{TX_COUNT} tx, bench options")
