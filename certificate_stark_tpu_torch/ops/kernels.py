@@ -321,6 +321,7 @@ def build() -> dict:
 
 
 _vp, _ll, _int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_IP = ctypes.POINTER(_int)
 # leaves, out, schedule (host int64), stages, n, gate counters, stream
 _TREE_ARGS = [_vp, _vp, ctypes.POINTER(_ll), _int, _ll, _vp, _vp]
 # the C entry points of each library and their argument types
@@ -339,10 +340,12 @@ _ENTRY_POINTS = {
     "tx_trace": {"transaction_trace_launch":
                  [_vp] * 14 + [_int, _ll, _vp, _vp]},
     # cur, nxt, periodic and their row strides, mds, inv_mds, gen12, b3,
-    # S, out, stream
+    # S, out, the schedule and its length, stream; the schedule, its
+    # length, then shared memory bytes, blocks an SM, threads, tile (out)
     "air_eval": {"transaction_eval_launch":
                  [_vp, _ll, _vp, _ll, _vp, _ll] + [_vp] * 4
-                 + [_ll, _vp, _vp]},
+                 + [_ll, _vp, _IP, _int, _vp],
+                 "transaction_eval_occupancy": [_IP, _int] + [_IP] * 4},
     # evals, its row stride, C; cur, its row stride; meta, At, NA, G;
     # xpow, zt_inv, b_invz, b_ev, their row stride, j0; t_alpha, t_beta,
     # b_alpha, b_beta, NB; d, S, out, stream
@@ -638,6 +641,78 @@ TX_WIDTH, TX_SLOTS, TX_PERIODIC = 94, 115, 48
 TX_CONSTS = (("mds", (14, 14)), ("inv_mds", (14, 14)), ("gen12", (12,)),
              ("b3", (6,)))
 
+# transaction_eval's schedule, which csrc/air_eval.cu takes as a table at
+# every launch. The Rescue round differences, one for each distinct
+# register base (its 14 registers), each added into its flagged slot
+# ranges (first slot, periodic flag column): merkle-init's rounds at setup
+# (flag 0, setup), the Merkle authentication's (flag 4, hash_mask) and the
+# Schnorr message hash's (flag 12, schnorr_hash).
+EVAL_ROUNDS = ((0, ((0, 0), (0, 4))), (15, ((14, 0), (15, 4))),
+               (29, ((28, 0), (29, 4))), (44, ((42, 0), (44, 4))),
+               (42, ((42, 12),)))
+# The item kinds in the kernel's order (csrc/air_eval.cu K_*), and the
+# items each of a block's 8 warps runs, in turn, over the tile's 32
+# points: (kind, parameter), the parameter a row of EVAL_ROUNDS or a point
+# (0: s.G in cols 0..18, 1: h.P in cols 19..37). "own" writes slots 58..114
+# alone, straight to the output; the others add into slots 0..57. Warp w
+# issues on the SM's scheduler w % 4: the point formulas (about twice a
+# round difference's instructions each) run on warps 5-7, one to a
+# scheduler, beside the rounds. Of the orders timed on the H100 this was
+# the fastest; those that spread the point formulas over more warps, or
+# give every scheduler an equal share, were slower (PERF.md §6;
+# scripts/profile_air_eval.py times such orders).
+EVAL_KINDS = ("round", "double", "mixed", "full", "merkle", "hash", "range",
+              "own")
+EVAL_WARPS = ((("round", 0), ("hash", 0)), (("round", 1), ("own", 0)),
+              (("round", 2), ("range", 0)), (("round", 3),), (("round", 4),),
+              (("mixed", 0), ("double", 0)), (("mixed", 1), ("double", 1)),
+              (("full", 0), ("merkle", 0)))
+EVAL_ITEMS = 3            # items a warp at most
+EVAL_SHARED_SLOTS = 58    # slots 0..57
+
+
+def eval_item_slots(kind: str, param: int = 0) -> frozenset:
+    """The result slots an item of transaction_eval's schedule writes."""
+    if kind == "round":
+        return frozenset(s + i for s, _ in EVAL_ROUNDS[param][1]
+                         for i in range(14))
+    ranges = {"double": (19 * param, 19 * param + 19),
+              "mixed": (19 * param, 19 * param + 19), "full": (0, 18),
+              "merkle": (0, 58), "hash": (38, 56), "range": (56, 58),
+              "own": (EVAL_SHARED_SLOTS, TX_SLOTS)}
+    return frozenset(range(*ranges[kind]))
+
+
+@functools.lru_cache(maxsize=None)
+def _eval_schedule():
+    """EVAL_ROUNDS and EVAL_WARPS as the kernel's int table: a round's
+    register base, slot and flag of each range (-1, 0 for a missing
+    second), then each warp's items, kind << 3 | parameter, -1 after."""
+    vals = []
+    for reg, ranges in EVAL_ROUNDS:
+        vals += [reg] + [v for r in ranges for v in r] + \
+            [-1, 0] * (2 - len(ranges))
+    for items in EVAL_WARPS:
+        vals += [EVAL_KINDS.index(kind) << 3 | param
+                 for kind, param in items] + [-1] * (EVAL_ITEMS - len(items))
+    return (ctypes.c_int * len(vals))(*vals)
+
+
+def transaction_eval_occupancy() -> dict:
+    """The launch shape of transaction_eval on the current card:
+    dynamic shared memory a block, resident blocks and warps an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), threads a block and
+    points a tile."""
+    sched = _eval_schedule()
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    _raise_on(_lib("air_eval").transaction_eval_occupancy(
+        sched, len(sched), *[ctypes.byref(v) for v in vals]),
+        "transaction_eval_occupancy")
+    smem, blocks, threads, tile = (v.value for v in vals)
+    return dict(smem_bytes=smem, blocks_per_sm=blocks,
+                warps_per_sm=blocks * threads // 32, threads=threads,
+                tile=tile)
+
 
 def _row_stride(t: torch.Tensor, what: str, device, rows: int, S: int) -> int:
     """The row stride of a [rows, S] int64 view on `device` whose points
@@ -699,10 +774,11 @@ def transaction_eval(cur: torch.Tensor, nxt: torch.Tensor,
     if S == 0:
         return out
     stream = torch.cuda.current_stream(cur.device).cuda_stream
+    sched = _eval_schedule()
     _raise_on(_lib("air_eval").transaction_eval_launch(
         cur.data_ptr(), lds[0], nxt.data_ptr(), lds[1], periodic.data_ptr(),
         lds[2], *[consts[name].data_ptr() for name, _ in TX_CONSTS], S,
-        out.data_ptr(), stream), "transaction_eval")
+        out.data_ptr(), sched, len(sched), stream), "transaction_eval")
     transaction_eval.launches += 1
     return out
 

@@ -1589,24 +1589,32 @@ def _pytorch_route(prover, lde, coeffs):
     return K.compose_plain(evals, cur, 0, prover.comp_tabs, *coeffs)
 
 
-def _eval_muls(form):
-    """32-bit multiplies a point of csrc/air_eval.cu does, the multiply by
-    b3 of `form` taking 6, 9 or 18 Montgomery multiplies: (Montgomery
-    multiplies, squarings, 14-term MDS rows) counted from the kernel, in
-    the units of MULS_PER_MMUL, MULS_PER_MSQR and MULS_PER_MDS_ROW."""
+def _eval_muls(form, differences=None):
+    """32-bit multiplies a point that the transaction AIR's 115 constraint
+    slots need, the multiply by b3 of `form` taking 6, 9 or 18 Montgomery
+    multiplies: (Montgomery multiplies, squarings, 14-term MDS rows) in the
+    units of MULS_PER_MMUL, MULS_PER_MSQR and MULS_PER_MDS_ROW. The nine
+    flagged Rescue round ranges read five distinct register bases
+    (ops/kernels.py EVAL_ROUNDS), so the function needs five round
+    differences; `differences=9` counts one for each range, as a kernel
+    that evaluates each range's round on its own does."""
+    from certificate_stark_tpu_torch.ops import kernels as K
+    ranges = sum(len(r) for _, r in K.EVAL_ROUNDS)
+    differences = differences or len(K.EVAL_ROUNDS)
     b3 = {"subfield": 6, "fp2": 9, "full_fp6": 18}[form]
     # two doublings and two mixed additions (11 fp6 multiplies and 2 by b3
     # each), the full addition (12 and 2) and its x * Z check (1)
     ec = (4 * 11 + 12 + 1) * 18 + 10 * b3
     mmul = (ec
             + 2 * (18 * 4 + 2)   # the two points' equalities, bit checks
-            + 9 * 42             # nine Rescue rounds: 28 cubes, 14 flags
+            + differences * 28   # the round differences' cubes
+            + ranges * 14        # a flag a slot of each round range
             + 27 + 54            # setup values; key and value copies
             + 228                # Merkle authentication besides rounds
             + 85                 # Schnorr's final, limb, hash-row flags
             + 5)                 # range proofs
-    msqr = 2 + 9 * 28 + 2 + 2    # bit squares; the rounds' cubes
-    rows = 9 * 28                # two MDS layers a round
+    msqr = 2 + differences * 28 + 2 + 2   # bit squares; the cubes
+    rows = differences * 28               # two MDS layers a difference
     return mmul * MULS_PER_MMUL + msqr * MULS_PER_MSQR + \
         rows * MULS_PER_MDS_ROW
 
@@ -1643,8 +1651,9 @@ def phase_eval(dev, prover, lde):
     transaction_eval with every b3 form of _b3_forms(), compose at d = 1
     and 3 on its output with random coefficients. Both timed (CUDA events),
     beside their bounds and the plain versions' times, with their
-    registers and spills from the ptxas report. Returns the two rows of
-    the kernels line."""
+    registers and spills from the ptxas report, and transaction_eval's
+    launch shape (dynamic shared memory, tile, resident blocks and warps
+    an SM). Returns the two rows of the kernels line."""
     from certificate_stark_tpu_torch.ops import field as F
     from certificate_stark_tpu_torch.ops import kernels as K
     S = prover.chunk
@@ -1669,14 +1678,19 @@ def phase_eval(dev, prover, lde):
             lambda: K.transaction_eval(cur, nxt, per, consts), 10)
         nbytes = (2 * K.TX_WIDTH + K.TX_PERIODIC + K.TX_SLOTS) * 8 * S
         bound_by_form[form] = bound_ms(nbytes, _eval_muls(form) * S)
+        old = bound_ms(nbytes, _eval_muls(form, 9) * S)[0]
         log(f"transaction_eval == plain ([{K.TX_SLOTS}, {S}], b3 {form}): "
             f"{ms_by_form[form]:.4f} ms, plain {plain_by_form[form]:.1f} ms, "
             f"bound {bound_by_form[form][0]:.4f} ms "
             f"({bound_by_form[form][1]}, {_eval_muls(form)} 32-bit "
-            f"multiplies a point)")
+            f"multiplies a point for {len(K.EVAL_ROUNDS)} round "
+            f"differences; {_eval_muls(form, 9)} and {old:.4f} ms counting "
+            f"one a flagged range, 9)")
     main = next(f for f, b3 in _b3_forms().items() if b3 == main_b3)
     use = _ptxas_usage("air_eval", "transaction_eval")
-    log(f"transaction_eval registers, stack and spills a thread: {use}")
+    use.update(K.transaction_eval_occupancy())
+    log(f"transaction_eval registers, stack and spills a thread, launch "
+        f"shape: {use}")
     rows = [dict(name="transaction_eval", route="cuda",
                  source="certificate_stark_tpu_torch/csrc/air_eval.cu",
                  replaces="certificate_stark_tpu/models/transaction.py:237",
