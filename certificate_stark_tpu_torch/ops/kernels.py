@@ -348,11 +348,13 @@ _ENTRY_POINTS = {
                  "transaction_eval_occupancy": [_IP, _int] + [_IP] * 4},
     # evals, its row stride, C; cur, its row stride; meta, At, NA, G;
     # xpow, zt_inv, b_invz, b_ev, their row stride, j0; t_alpha, t_beta,
-    # b_alpha, b_beta, NB; d, S, out, stream
+    # b_alpha, b_beta, NB; d, S, out, stream; C, At, NA, G, d, S, then
+    # shared memory bytes, blocks an SM, blocks in the grid (out)
     "compose": {"compose_launch":
                 [_vp, _ll, _int, _vp, _ll, _vp, _int, _int, _int]
                 + [_vp] * 4 + [_ll, _ll] + [_vp] * 4
-                + [_int, _int, _ll, _vp, _vp]},
+                + [_int, _int, _ll, _vp, _vp],
+                "compose_occupancy": [_int] * 5 + [_ll] + [_IP] * 3},
 }
 
 
@@ -914,6 +916,21 @@ def compose(evals: torch.Tensor, cur: torch.Tensor, j0: int,
 
 
 compose.launches = 0
+
+
+def compose_occupancy(tabs: ComposeTables, d: int, S: int) -> dict:
+    """The launch shape of compose on the current card for these tables,
+    extension degree d and S points, with the 16-byte loads of aligned
+    rows (the prover's): dynamic shared memory a block, resident blocks an
+    SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and blocks in the
+    persistent grid."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    _raise_on(_lib("compose").compose_occupancy(
+        len(tabs.t_idx), len(tabs.t_row), len(tabs.b_col), len(tabs.b_adj),
+        d, S, *[ctypes.byref(v) for v in vals]), "compose_occupancy")
+    smem, blocks, grid = (v.value for v in vals)
+    return dict(smem_bytes=smem, blocks_per_sm=blocks, grid=grid)
+
 
 WRAPPERS = (f63_mul, rescue_permutation, blake3_leaves, blake3_merge,
             blake3_tree, sha256_leaves, sha256_merge, sha256_tree,

@@ -13,9 +13,10 @@ Merkle tree in one launch, at every leaf count 2^0 .. 2^21 and BLAKE3 up
 to 2^23, beside the per-level merge loop they replace; the transaction
 AIR's constraint evaluation and the pointwise composition on the
 128-transaction proof's 2^20-point segment, the evaluation with each form
-of the curve constant b3 and the composition at extension degrees 1 and
-3). Every proof path checks one evaluation launch (the transaction AIR's)
-and one composition launch a domain segment. Two
+of the curve constant b3 and the composition at extension degrees 1, 2
+and 3, also on an all-(p - 1) input that brings its unreduced sums
+closest to 2^128). Every proof path checks one evaluation launch (the
+transaction AIR's) and one composition launch a domain segment. Two
 main paths run with their launch counts set to 0 just before and read just
 after: the rescue chain of length 1024 (Rescue commitments) and the
 composed state-transition AIR at 128 transactions, depth 15, with bench.py's
@@ -126,6 +127,10 @@ INT32_MUL_PER_S = 64 * 132 * 1.98e9
 MULS_PER_MMUL = 12
 MULS_PER_MSQR = 10
 MULS_PER_MDS_ROW = 14 * 8 + 4
+# a product added into an unreduced four-word sum (f63_mac), and the one
+# reduction of such a sum (f63_redc_wide)
+MULS_PER_MAC = 8
+MULS_PER_REDC = 4
 # the inverse s-box chain of ops/kernels.py INV_ALPHA_CHAIN
 INV_ALPHA_SQR, INV_ALPHA_MUL = 61, 12
 # one Rescue permutation: 7 rounds x 14 lanes x (s-box x^3: a squaring and a
@@ -516,9 +521,34 @@ def _sass_executed(instrs, trips, taken):
     return total, imad, loops, skips
 
 
+def _hot_loop(instrs):
+    """Of the loops (backward branches) that hold no other loop, the one
+    with the most 32 x 32 + 64-bit multiply-adds (IMAD.WIDE): its
+    instruction count and its mix of multiply-adds, register moves and
+    shared-memory loads."""
+    loops = [(int(m.group(1), 16), addr) for addr, ins in instrs
+             for m in [re.search(r"\bBRA\s+(?:\S+\s+)?0x([0-9a-f]+)", ins)]
+             if m and int(m.group(1), 16) < addr]
+    inner = [(lo, hi) for lo, hi in loops
+             if not any(lo <= a and b <= hi and (a, b) != (lo, hi)
+                        for a, b in loops)]
+    best = None
+    for lo, hi in inner:
+        ops = [re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0]
+               for addr, ins in instrs if lo <= addr <= hi]
+        mix = dict(instructions=len(ops),
+                   imad_wide=sum(o.startswith("IMAD.WIDE") for o in ops),
+                   moves=sum(o in ("MOV", "IMAD.MOV.U32") for o in ops),
+                   shared_loads=sum(o.startswith("LDS") for o in ops))
+        if best is None or mix["imad_wide"] > best["imad_wide"]:
+            best = mix
+    return best
+
+
 def phase_sass():
-    """Static SASS instruction counts of every kernel, and the Rescue
-    kernels' instructions per permutation (per thread x threads a state)."""
+    """Static SASS instruction counts of every kernel, the Rescue kernels'
+    instructions per permutation (per thread x threads a state), and the
+    composition kernels' hottest loop (a run of FOLD_EVERY items)."""
     from certificate_stark_tpu_torch.ops import kernels as K
     out = {}
     for name, path in K.build().items():
@@ -541,6 +571,8 @@ def phase_sass():
                              f"{len(skips)} skipped ranges: {per_thread:.0f} "
                              f"a thread, {per_perm:.0f} a permutation, "
                              f"{100 * imad / per_thread:.1f}% IMAD")
+            if "compose_kernel" in func:
+                line += f"; hot loop {_hot_loop(instrs)}"
             log(line)
     return out
 
@@ -1619,17 +1651,48 @@ def _eval_muls(form, differences=None):
         rows * MULS_PER_MDS_ROW
 
 
-def _compose_cost(tabs, C, d, S):
+def _compose_cost(tabs, C, d, S, unreduced=True):
     """(bytes, 32-bit multiplies) of compose on S points: each input row
     read once (constraint values, the assertions' trace columns, x^adj,
-    zerofier, divisors, varying boundary values), d rows written; 2d
-    products a constraint and an assertion, d an adjustment group's x^adj,
-    2d a boundary group's, d the zerofier."""
+    zerofier, divisors, varying boundary values), d rows written. The
+    products as the kernel sums them: 2d a constraint and an assertion
+    into unreduced sums, each sum reduced once; an adjustment group's beta
+    sums reduced and times x^adj into the alpha sums (d each); a boundary
+    group's the same, then its sums reduced and times the divisor; the
+    zerofier's d. With unreduced=False every product a Montgomery
+    multiply: 2d a constraint and an assertion, d an adjustment group's
+    x^adj, 2d a boundary group's, d the zerofier."""
     rows = C + len(set(tabs.b_col)) + tabs.xpow.shape[0] + 1 + \
         tabs.b_invz.shape[0] + tabs.b_ev.shape[0] + d
-    mmul = d * (2 * C + len(tabs.t_row) + 1 + 2 * len(tabs.b_col)
-                + 2 * len(tabs.b_adj))
-    return rows * 8 * S, mmul * MULS_PER_MMUL * S
+    At, NA, G = len(tabs.t_row), len(tabs.b_col), len(tabs.b_adj)
+    if unreduced:
+        muls = d * (2 * (C + NA) * MULS_PER_MAC
+                    + At * (MULS_PER_REDC + MULS_PER_MAC)
+                    + MULS_PER_REDC + MULS_PER_MMUL
+                    + G * (2 * MULS_PER_REDC + MULS_PER_MAC + MULS_PER_MMUL))
+    else:
+        muls = d * (2 * C + At + 1 + 2 * NA + 2 * G) * MULS_PER_MMUL
+    return rows * 8 * S, muls * S
+
+
+def _compose_worst(dev, S):
+    """compose's worst case for its unreduced sums, on S points: every
+    evaluation, coefficient, trace and table value p - 1 and every
+    boundary value 0 (each product (p - 1)^2), the transaction AIR's 115
+    constraints in one adjustment group and 16 assertions in one boundary
+    group -> (evals, cur, tables, the coefficients of degree d of d)."""
+    from certificate_stark_tpu_torch.ops import field as F
+    from certificate_stark_tpu_torch.ops import kernels as K
+    C, NA, w = K.TX_SLOTS, 16, 4
+
+    def full(*shape):
+        return torch.full(shape, F.P - 1, dtype=torch.int64, device=dev)
+    tabs = K.compose_tables(
+        full(2, S), full(S), full(1, S),
+        torch.empty((0, S), dtype=torch.int64, device=dev),
+        [(0, list(range(C)))], [(1, [(a % w, a, -1, 0) for a in range(NA)])])
+    return full(C, S), full(w, S), tabs, \
+        lambda d: [full(d, n) for n in (C, C, NA, NA)]
 
 
 def _plain_timed(fn):
@@ -1648,12 +1711,13 @@ def phase_eval(dev, prover, lde):
     """transaction_eval and compose on the first 2^20-point segment of the
     128-transaction proof (`prover`'s tables, the trace LDE `lde`), each
     bit for bit against its plain version (inside plain_versions()):
-    transaction_eval with every b3 form of _b3_forms(), compose at d = 1
-    and 3 on its output with random coefficients. Both timed (CUDA events),
-    beside their bounds and the plain versions' times, with their
-    registers and spills from the ptxas report, and transaction_eval's
-    launch shape (dynamic shared memory, tile, resident blocks and warps
-    an SM). Returns the two rows of the kernels line."""
+    transaction_eval with every b3 form of _b3_forms(), compose at d = 1,
+    2 and 3 on its output with random coefficients, and on _compose_worst.
+    Both timed (CUDA events), beside their bounds and the plain versions'
+    times, with their registers and spills from the ptxas report and
+    their launch shapes (dynamic shared memory, resident blocks an SM;
+    transaction_eval's tile and warps, compose's persistent grid). Returns
+    the two rows of the kernels line."""
     from certificate_stark_tpu_torch.ops import field as F
     from certificate_stark_tpu_torch.ops import kernels as K
     S = prover.chunk
@@ -1705,25 +1769,43 @@ def phase_eval(dev, prover, lde):
 
     evals = K.transaction_eval(cur, nxt, per, prover.eval_consts)
     tabs, C = prover.comp_tabs, evals.shape[0]
+    w_evals, w_cur, w_tabs, w_coeffs = _compose_worst(dev, 1 << 16)
     err, by_d = 0, {}
-    for d in (1, 3):
+    for d in (1, 2, 3):
         coeffs = _random_coeffs(prover, 10 + d, d)
         got = K.compose(evals, cur, 0, tabs, *coeffs)
         exp, plain = _plain_timed(
             lambda: K.compose(evals, cur, 0, tabs, *coeffs))
         err = max(err, int((got - exp).abs().max()))
         check(err == 0, f"compose differs from its plain version (d = {d})")
+        wc = w_coeffs(d)
+        got = K.compose(w_evals, w_cur, 0, w_tabs, *wc)
+        exp = _plain_timed(lambda: K.compose(w_evals, w_cur, 0, w_tabs,
+                                             *wc))[0]
+        err = max(err, int((got - exp).abs().max()))
+        check(err == 0, f"compose differs from its plain version on the "
+              f"all-(p - 1) input (d = {d})")
+        del got, exp
         ms = cuda_ms(lambda: K.compose(evals, cur, 0, tabs, *coeffs), 10)
         nbytes, muls = _compose_cost(tabs, C, d, S)
+        old_muls = _compose_cost(tabs, C, d, S, unreduced=False)[1]
         bnd, by = bound_ms(nbytes, muls)
-        use = _ptxas_usage("compose", f"compose_kernelILi{d}E")
+        t_bytes = bound_ms(nbytes, 0)[0]
+        use = _ptxas_usage("compose", f"compose_kernelILi{d}ELb1E")
+        use.update(K.compose_occupancy(tabs, d, S))
+        scalar = _ptxas_usage("compose", f"compose_kernelILi{d}ELb0E")
         by_d[d] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                        **use)
         log(f"compose == plain ([{d}, {S}] from [{C}, {S}] evaluations, "
-            f"{len(tabs.b_col)} assertions in {len(tabs.b_adj)} groups): "
-            f"{ms:.4f} ms, plain {plain:.1f} ms, bound {bnd:.4f} ms ({by}); "
-            f"{use}")
-    main = prover.d if prover.d in by_d else 1
+            f"{len(tabs.t_row)} adjustment groups, {len(tabs.b_col)} "
+            f"assertions in {len(tabs.b_adj)} groups; and on the all-(p - 1) "
+            f"input, [{d}, {w_evals.shape[1]}]): {ms:.4f} ms, plain "
+            f"{plain:.1f} ms, bound {bnd:.4f} ms ({by}; bytes {t_bytes:.4f}; "
+            f"{muls // S} 32-bit multiplies a point summed unreduced, "
+            f"{old_muls // S} and {bound_ms(0, old_muls)[0]:.4f} ms as "
+            f"Montgomery multiplies); {use}; without 16-byte loads "
+            f"{scalar}")
+    main = 3     # the cubic path's degree, whose launches the row counts
     rows.append(dict(name="compose", route="cuda",
                      source="certificate_stark_tpu_torch/csrc/compose.cu",
                      replaces="certificate_stark_tpu/engine/prover.py:628",
