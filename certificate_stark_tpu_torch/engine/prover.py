@@ -21,13 +21,12 @@ Domains of up to `chunk` points (EVAL_CHUNK, 2^20, by default: the 128-
 transaction proof's LDE) are one batch in every phase. A larger domain (the
 1024-transaction proof's 2^23 points) is worked in contiguous segments of
 `chunk` points: the constraint evaluation with the pointwise composition,
-and the DEEP quotients, each segment written into one preallocated output;
-and the LDEs run over groups of columns of at most `w * chunk` points
-each, into a preallocated output. Every value is computed pointwise (each
-inverse exactly), so the proof is the same bytes at any chunk size. This is
-the JAX package's domain-chunked evaluation and column-group LDE
-(`_pick_eval_chunk`, `_lde_cols`); its packed LDE and per-row gathers have
-no counterpart here.
+and the DEEP quotients, each segment written into one preallocated output.
+Every value is computed pointwise (each inverse exactly), so the proof is
+the same bytes at any chunk size. This is the JAX package's domain-chunked
+evaluation (`_pick_eval_chunk`). Its column-group LDE (`_lde_cols`) has no
+counterpart: the lde kernel takes every column at once with no scratch
+beyond its output. Its packed LDE and per-row gathers have none either.
 """
 from __future__ import annotations
 
@@ -179,20 +178,10 @@ class Prover:
                 for j0 in range(0, self.j_hi - self.j_lo, self.chunk)]
 
     def _lde_from_coeffs(self, coeffs):
-        """Coefficients [..., n] -> LDE [..., bn]; above the chunk, over
-        groups of rows of at most w * chunk points each, written into one
-        preallocated output."""
-        b, bn = self.b, self.bn
-        if self.chunk == bn:
-            return NTT.lde_from_coeffs(coeffs, b, self.offset)
-        flat = coeffs.reshape(-1, self.n)
-        out = torch.empty((flat.shape[0], bn), dtype=flat.dtype,
-                          device=flat.device)
-        g = max(1, self.w * self.chunk // bn)
-        for r0 in range(0, flat.shape[0], g):
-            out[r0:r0 + g] = NTT.lde_from_coeffs(flat[r0:r0 + g], b,
-                                                 self.offset)
-        return out.reshape(tuple(coeffs.shape[:-1]) + (bn,))
+        """Coefficients [..., n] -> LDE [..., bn]: the lde kernel writes
+        the output in place, pass after pass, with no scratch, so every
+        domain size takes all rows at once."""
+        return NTT.lde_from_coeffs(coeffs, self.b, self.offset)
 
     def phase_trace(self, trace):
         """trace [w, n] -> (coefficients [w, n], LDE [w, bn])."""

@@ -8,7 +8,7 @@ Two kernels replace the Pallas kernels of the JAX package
   rescue_permutation  <- pallas_rescue_permutation (:142-160),
                          csrc/rescue_perm.cu
 
-and twelve replace XLA code of the JAX package:
+and fourteen replace XLA code of the JAX package:
 
   blake3_leaves, blake3_merge  <- engine/hasher.py Blake3Hasher
                                   hash_columns / merge_pairs, csrc/blake3.cu
@@ -30,6 +30,11 @@ and twelve replace XLA code of the JAX package:
                                   TransactionAir.evaluate_transition)
   compose                      <- engine/prover.py _pointwise_comp,
                                   csrc/compose.cu
+  ntt, lde                     <- ops/ntt.py ntt / intt (:97, :311) and lde
+                                  with coset_scale (:326, :315), whose
+                                  Pallas kernel pallas_local_ntt was
+                                  deleted: csrc/ntt.cu, one launch a pass
+                                  of ntt_plan
 
 The CUDA sources are compiled at first use with nvcc for sm_90a, one shared
 library with a plain C interface per source (all compiles started together),
@@ -91,7 +96,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = {"f63_mul": "f63_mul.cu", "rescue_perm": "rescue_perm.cu",
            "blake3": "blake3.cu", "sha256": "sha256.cu", "sha3": "sha3.cu",
            "tx_trace": "tx_trace.cu", "air_eval": "air_eval.cu",
-           "compose": "compose.cu"}
+           "compose": "compose.cu", "ntt": "ntt.cu"}
 _HEADERS = ("f63.cuh", "tree.cuh")
 
 _LIBS: dict = {}
@@ -266,6 +271,170 @@ def tree_plain(merge_plain, leaves: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# the NTT and the coset LDE
+# ---------------------------------------------------------------------------
+# A block of csrc/ntt.cu holds NTT_TILE points in shared memory (its
+# NTT_TILE_LOG): R cosets x G groups x one pass's n_p points.
+NTT_TILE = 1 << 13
+
+
+def _log2(n: int, what: str) -> int:
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"{what}: {n} is not a power of two")
+    return n.bit_length() - 1
+
+
+def _mont(x: int) -> int:
+    return (x << 64) % P
+
+
+def _root(n: int, inverse: bool = False) -> int:
+    from .ntt import root_of_unity
+    w = root_of_unity(n)
+    return pow(w, P - 2, P) if inverse else w
+
+
+def _sub_plain(a, b):
+    d = a - b
+    return torch.where(d < 0, d + P, d)
+
+
+def _powers_plain(base: int, count: int, device) -> torch.Tensor:
+    """[base^0 .. base^(count-1)] Montgomery, by doubling with mul_plain."""
+    tbl = torch.tensor([_mont(1)], dtype=torch.int64, device=device)
+    cur = base % P
+    while tbl.numel() < count:
+        m = min(tbl.numel(), count - tbl.numel())
+        step = torch.tensor(_mont(cur), dtype=torch.int64, device=device)
+        tbl = torch.cat([tbl, mul_plain(tbl[:m], step)])
+        cur = cur * cur % P
+    return tbl[:count]
+
+
+@functools.lru_cache(maxsize=64)
+def _plain_twiddles(n: int, inverse: bool, device: str):
+    """w^0 .. w^(n/2 - 1) of the n-th root (its inverse for the inverse),
+    and the bit-reversal permutation of n."""
+    bits = n.bit_length() - 1
+    idx = torch.arange(n, device=device)
+    rev = torch.zeros_like(idx)
+    for k in range(bits):
+        rev |= ((idx >> k) & 1) << (bits - 1 - k)
+    return _powers_plain(_root(n, inverse), max(n // 2, 1), device), rev
+
+
+def ntt_plain(a: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """Plain PyTorch NTT along the last axis of [..., n] (natural order in
+    and out): a bit-reversal gather, then log2 n radix-2 stages; the
+    inverse multiplies by 1/n at the end."""
+    n = a.shape[-1]
+    _log2(n, "ntt_plain")
+    if n == 1:
+        return a.clone()
+    lead = tuple(a.shape[:-1])
+    master, rev = _plain_twiddles(n, inverse, str(a.device))
+    x = a.index_select(-1, rev)
+    m = 2
+    while m <= n:
+        half = m // 2
+        xr = x.reshape(lead + (n // m, m))
+        even, odd = xr[..., :half], xr[..., half:]
+        t = mul_plain(odd, master[::n // m])
+        x = torch.cat([_add_plain(even, t), _sub_plain(even, t)], dim=-1)
+        m *= 2
+    x = x.reshape(lead + (n,))
+    if inverse:
+        x = mul_plain(x, torch.tensor(_mont(pow(n, P - 2, P)),
+                                      dtype=torch.int64, device=a.device))
+    return x
+
+
+def lde_plain(coeffs: torch.Tensor, blowup: int,
+              offset: int) -> torch.Tensor:
+    """Plain PyTorch LDE: coefficients [..., n] zero-padded to blowup * n,
+    coefficient t times offset^t, then ntt_plain -> the evaluations over
+    offset * <w_{blowup n}>."""
+    n = coeffs.shape[-1]
+    padded = torch.nn.functional.pad(coeffs, (0, (blowup - 1) * n))
+    scaled = mul_plain(padded, _powers_plain(offset, blowup * n,
+                                             coeffs.device))
+    return ntt_plain(scaled)
+
+
+def ntt_plan(n: int, blowup: int = 1, tile: int = NTT_TILE) -> list:
+    """The passes of csrc/ntt.cu for a transform of n points (an LDE of
+    blowup cosets): one pass where n fits a tile, else the fewest passes
+    of at most tile / 2 points each (sizes as even as possible, the larger
+    first), so that every pass's block holds G >= 2 groups. Each pass:
+    log (log2 n_p), log_R (cosets a block), log_G (groups a block), points
+    and smem_bytes a block, blocks a column."""
+    L, lb = _log2(n, "ntt_plan n"), _log2(blowup, "ntt_plan blowup")
+    tl = _log2(tile, "ntt_plan tile")
+    if tl < 2:
+        raise ValueError(f"ntt_plan: tile {tile} below 4 points")
+    if L <= tl:
+        logs = [L]
+    else:
+        count = -(-L // (tl - 1))
+        logs = [L // count + (i < L % count) for i in range(count)]
+    passes, lgT = [], 0
+    for p, lp in enumerate(logs):
+        log_R = min(lb, tl - lp)
+        log_G = min(L - lp if p == 0 else lgT, tl - lp - log_R)
+        pts = 1 << (log_R + log_G + lp)
+        passes.append(dict(log=lp, log_R=log_R, log_G=log_G, points=pts,
+                           smem_bytes=8 * pts, blocks=(blowup * n) // pts))
+        lgT += lp
+    return passes
+
+
+def _pow_ints(base: int, count: int) -> list:
+    out, cur = [], 1
+    for _ in range(count):
+        out.append(_mont(cur))
+        cur = cur * base % P
+    return out
+
+
+def _split_table(base: int, log_count: int, device):
+    """base^e for e < 2^log_count as lo[e mod 2^h] * hi[e >> h] (h =
+    ceil(log_count / 2)): (lo, hi, h), Montgomery."""
+    h = (log_count + 1) // 2
+    lo = _pow_ints(base, 1 << h)
+    hi = _pow_ints(pow(base, 1 << h, P), 1 << (log_count - h))
+    return (torch.tensor(lo, dtype=torch.int64, device=device),
+            torch.tensor(hi, dtype=torch.int64, device=device), h)
+
+
+NttTables = collections.namedtuple("NttTables",
+                                   "stages tw_lo tw_hi h_tw ninv")
+
+
+@functools.lru_cache(maxsize=64)
+def ntt_tables(n: int, inverse: bool, logs: tuple, device: str) -> NttTables:
+    """csrc/ntt.cu's tables for a transform of n points with passes of
+    log2 sizes `logs`, from ops/ntt.py root_of_unity (the inverse root for
+    the inverse): each pass's w_{n_p}^k (k < n_p / 2), w_n^e split in two,
+    and 1/n, Montgomery; cached."""
+    w = _root(n, inverse)
+    stages = tuple(torch.tensor(_pow_ints(pow(w, n >> lp, P),
+                                          max(1 << lp >> 1, 1)),
+                                dtype=torch.int64, device=device)
+                   for lp in logs)
+    tw_lo, tw_hi, h = _split_table(w, n.bit_length() - 1, device)
+    return NttTables(stages, tw_lo, tw_hi, h, _mont(pow(n, P - 2, P)))
+
+
+@functools.lru_cache(maxsize=256)
+def lde_tables(n: int, blowup: int, offset: int, device: str):
+    """The LDE's coset tables: offset^t (t < n) and w_bn^e (e < blowup n),
+    each split in two: ((o_lo, o_hi, h_o), (c_lo, c_hi, h_c)); cached."""
+    bn = blowup * n
+    return (_split_table(offset % P, n.bit_length() - 1, device),
+            _split_table(_root(bn), bn.bit_length() - 1, device))
+
+
+# ---------------------------------------------------------------------------
 # build and load
 # ---------------------------------------------------------------------------
 def _nvcc() -> str:
@@ -355,6 +524,15 @@ _ENTRY_POINTS = {
                 + [_vp] * 4 + [_ll, _ll] + [_vp] * 4
                 + [_int, _int, _ll, _vp, _vp],
                 "compose_occupancy": [_int] * 5 + [_ll] + [_IP] * 3},
+    # src, dst, C, log2 n, (log2 b,) the passes' log2 sizes and their
+    # count, the pass, (log2 R,) log2 G, the pass's stage table, the split
+    # w_n table and its split; ntt: 1/n and whether to apply it; lde: the
+    # split offset and w_bn tables; stream
+    "ntt": {"ntt_launch": [_vp, _vp, _ll, _int, _IP, _int, _int, _int]
+            + [_vp] * 3 + [_int, _ll, _int, _vp],
+            "lde_launch": [_vp, _vp, _ll, _int, _int, _IP, _int, _int, _int,
+                           _int] + [_vp] * 3 + [_int] + [_vp] * 2 + [_int]
+            + [_vp] * 2 + [_int, _vp]},
 }
 
 
@@ -932,10 +1110,95 @@ def compose_occupancy(tabs: ComposeTables, d: int, S: int) -> dict:
     return dict(smem_bytes=smem, blocks_per_sm=blocks, grid=grid)
 
 
+def _transform_args(name: str, a: torch.Tensor):
+    """Checks a contiguous int64 [C, n] CUDA tensor; -> (log2 n, the
+    stream)."""
+    if a.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {a.device}")
+    if a.dim() != 2:
+        raise ValueError(f"{name}: shape {tuple(a.shape)}, expected (C, n)")
+    _check(a, f"{name} input")
+    return (_log2(a.shape[1], f"{name} n"),
+            torch.cuda.current_stream(a.device).cuda_stream)
+
+
+def ntt(a: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+    """NTT (inverse: iNTT with 1/n) along the last axis of a contiguous
+    int64 [C, n], natural order in and out: one launch a pass of
+    ntt_plan(n), the first from a into the output, the later ones in place.
+    The plain version for a CPU tensor or inside plain_versions().
+    `ntt.shapes` keeps every (C, n, inverse) launched in this process."""
+    if use_plain(a):
+        return ntt_plain(a, inverse)
+    L, stream = _transform_args("ntt", a)
+    out = torch.empty_like(a)
+    if a.shape[0] == 0:
+        return out
+    plan = ntt_plan(a.shape[1])
+    logs = tuple(ps["log"] for ps in plan)
+    tabs = ntt_tables(a.shape[1], bool(inverse), logs, str(a.device))
+    lg = (_int * len(logs))(*logs)
+    for p, ps in enumerate(plan):
+        last = p == len(plan) - 1
+        _raise_on(_lib("ntt").ntt_launch(
+            (a if p == 0 else out).data_ptr(), out.data_ptr(), a.shape[0], L,
+            lg, len(logs), p, ps["log_G"], tabs.stages[p].data_ptr(),
+            tabs.tw_lo.data_ptr(), tabs.tw_hi.data_ptr(), tabs.h_tw,
+            tabs.ninv, int(bool(inverse) and last), stream), "ntt")
+        ntt.launches += 1
+    ntt.shapes.add((a.shape[0], a.shape[1], bool(inverse)))
+    return out
+
+
+ntt.launches = 0
+ntt.shapes = set()
+
+
+def lde(coeffs: torch.Tensor, blowup: int, offset: int) -> torch.Tensor:
+    """Coefficients, a contiguous int64 [C, n] -> their evaluations over
+    offset * <w_{blowup n}>, [C, blowup n] in natural order (blowup a power
+    of two, offset a standard-form int): point r + blowup i is value i of
+    the size-n transform of the coefficients times (offset w^r)^t. One
+    launch a pass of ntt_plan(n, blowup). The plain version for a CPU
+    tensor or inside plain_versions(). `lde.shapes` keeps every (C, n,
+    blowup, offset mod p) launched in this process."""
+    if use_plain(coeffs):
+        return lde_plain(coeffs, blowup, offset)
+    L, stream = _transform_args("lde", coeffs)
+    lb = _log2(blowup, "lde blowup")
+    C, n = coeffs.shape
+    out = torch.empty((C, blowup * n), dtype=torch.int64,
+                      device=coeffs.device)
+    if C == 0:
+        return out
+    plan = ntt_plan(n, blowup)
+    logs = tuple(ps["log"] for ps in plan)
+    dev = str(coeffs.device)
+    tabs = ntt_tables(n, False, logs, dev)
+    (o_lo, o_hi, h_o), (c_lo, c_hi, h_c) = lde_tables(n, blowup, offset % P,
+                                                      dev)
+    lg = (_int * len(logs))(*logs)
+    for p, ps in enumerate(plan):
+        _raise_on(_lib("ntt").lde_launch(
+            (coeffs if p == 0 else out).data_ptr(), out.data_ptr(), C, L, lb,
+            lg, len(logs), p, ps["log_R"], ps["log_G"],
+            tabs.stages[p].data_ptr(), tabs.tw_lo.data_ptr(),
+            tabs.tw_hi.data_ptr(), tabs.h_tw, o_lo.data_ptr(),
+            o_hi.data_ptr(), h_o, c_lo.data_ptr(), c_hi.data_ptr(), h_c,
+            stream), "lde")
+        lde.launches += 1
+    lde.shapes.add((C, n, blowup, offset % P))
+    return out
+
+
+lde.launches = 0
+lde.shapes = set()
+
+
 WRAPPERS = (f63_mul, rescue_permutation, blake3_leaves, blake3_merge,
             blake3_tree, sha256_leaves, sha256_merge, sha256_tree,
             sha3_leaves, sha3_merge, sha3_tree, transaction_trace,
-            transaction_eval, compose)
+            transaction_eval, compose, ntt, lde)
 
 
 def reset_launches():

@@ -9,7 +9,8 @@ x[i1, i2] = x[i1 * n2 + i2],
 Input and output are [*B, N/D] blocks of the last axis in natural order
 (rank r holds indices [r * N/D, (r+1) * N/D)). Three all-to-alls a
 transform move the blocks from i1-rows to i2-columns, from i2 to k1 and
-from k1 to k2; the local transforms are the port's ops/ntt.py `ntt` and
+from k1 to k2; the local transforms are the port's ops/ntt.py `ntt` (the
+ntt kernel on the card, on a contiguous copy of each transposed view) and
 the twiddle multiply `F.mul` (the f63_mul kernel on the card). Each local
 inverse transform scales by 1/n1 or 1/n2, together 1/N.
 """

@@ -15,8 +15,11 @@ AIR's constraint evaluation and the pointwise composition on the
 128-transaction proof's 2^20-point segment, the evaluation with each form
 of the curve constant b3 and the composition at extension degrees 1, 2
 and 3, also on an all-(p - 1) input that brings its unreduced sums
-closest to 2^128). Every proof path checks one evaluation launch (the
-transaction AIR's) and one composition launch a domain segment. Two
+closest to 2^128; the NTT and the coset LDE, csrc/ntt.cu, at single
+columns of 2^0 .. 2^23 points, at every shape the paths launched, at
+[94, 2^20] -> 2^23 and on an all-(p - 1) input). Every proof path checks
+one evaluation launch (the transaction AIR's) and one composition launch
+a domain segment, and launches of the ntt and lde kernels. Two
 main paths run with their launch counts set to 0 just before and read just
 after: the rescue chain of length 1024 (Rescue commitments) and the
 composed state-transition AIR at 128 transactions, depth 15, with bench.py's
@@ -90,7 +93,11 @@ runs the tree kernels' checks and measurements alone,
     python3 chip_smoke.py --eval
 
 the evaluation and composition kernels' (on a random trace LDE over the
-128-transaction AIR's tables), and
+128-transaction AIR's tables),
+
+    python3 chip_smoke.py --ntt
+
+the ntt and lde kernels' (at the transaction paths' shapes), and
 
     python3 chip_smoke.py --hashes [blake3|sha256|sha3 ...]
 
@@ -197,6 +204,28 @@ F63_ROW = 14 * 14 * (1 << 20)
 # columns a plain-version call takes at once in the kernel checks (its
 # temporaries take many times its input)
 PLAIN_SLICE = 1 << 20
+# The ntt and lde kernels' shapes on the transaction paths, for `--ntt`
+# (the default run checks the shapes the wrappers recorded instead): the
+# trace's iNTT and LDE (94 columns, blowup 8) at 128 and 1024 transactions,
+# the composition's iNTT over the LDE domain ([d, bn]) and its LDE ([8 d,
+# n]: k = 8 columns a coordinate), base and cubic. NTT_ROW and LDE_ROW are
+# the kernels line's rows (the 128-transaction trace LDE phase); the
+# 1024-transaction ones are timed too.
+NTT_MAIN = tuple((C, n, True) for n in (1 << 17, 1 << 20)
+                 for C in (94, 1, 3)) + ((1, 1 << 23, True),
+                                         (3, 1 << 23, True))
+LDE_MAIN = tuple((C, n, 8) for n in (1 << 17, 1 << 20) for C in (94, 8, 24))
+NTT_ROW, LDE_ROW = (94, 1 << 17, True), (94, 1 << 17, 8)
+NTT_TIMED = (NTT_ROW, (94, 1 << 20, True), (3, 1 << 23, True))
+LDE_TIMED = (LDE_ROW, (94, 1 << 20, 8), (24, 1 << 20, 8))
+# elements a plain-version NTT or LDE call outputs at once in the checks
+NTT_PLAIN_SLICE = 1 << 25
+# the checks' single columns, 2^0 .. 2^NTT_CHECK_LOG points; their
+# all-(p - 1) input ([4, 2^20]: the NTT, and the LDE of its first 2^17
+# points); the 1024-transaction trace LDE, checked in every run
+NTT_CHECK_LOG = 23
+NTT_FULL = (4, 1 << 20)
+LDE_BIG = (94, 1 << 20, 8)
 # Hash kernel checks: leaf shapes [k, B]; the first is the row of the
 # kernels line. BLAKE3: the base path's trace rows, composition rows and
 # first FRI layer, then ragged ones. SHA: the trace rows [94, 2^20], the
@@ -801,7 +830,7 @@ def phase_full(dev):
         log(f"  {label:32s} {ms:10.1f} ms")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f}"
         f" MiB; kernel launches {launches}")
-    for name in ("f63_mul", "rescue_permutation"):
+    for name in ("f63_mul", "rescue_permutation", "ntt", "lde"):
         check(launches[name] > 0, f"{name} was not launched on the chain "
               "main path")
     _golden_check("rescue_chain1024_rescue", golden, prover, proof)
@@ -1328,12 +1357,14 @@ ROW_PATHS = {"rescue_permutation": "chain1024",
 # AIRs their own evaluations and the composition kernel (the 128-unit ones
 # the trace kernel too)
 TX_KERNELS = ("f63_mul", "blake3_leaves", "blake3_tree", "transaction_trace",
-              "transaction_eval", "compose")
+              "transaction_eval", "compose", "ntt", "lde")
 SHA3_KERNELS = ("f63_mul", "sha3_leaves", "sha3_tree", "transaction_trace",
-                "transaction_eval", "compose")
+                "transaction_eval", "compose", "ntt", "lde")
 SHA256_KERNELS = ("f63_mul", "sha256_leaves", "sha256_tree",
-                  "transaction_trace", "transaction_eval", "compose")
-SUBAIR_KERNELS = ("f63_mul", "blake3_leaves", "blake3_tree", "compose")
+                  "transaction_trace", "transaction_eval", "compose", "ntt",
+                  "lde")
+SUBAIR_KERNELS = ("f63_mul", "blake3_leaves", "blake3_tree", "compose", "ntt",
+                  "lde")
 
 
 def phase_checkpoint(dev):
@@ -1548,8 +1579,12 @@ def profile_tx_proof(ex, prover, what):
                                 "sha3_leaves", "sha3_merge",
                                 "sha3_tree",
                                 "transaction_trace", "transaction_eval",
-                                "compose", "rescue_perm")
+                                "compose", "rescue_perm",
+                                "ntt_pass_kernel<false>",
+                                "ntt_pass_kernel<true>")
                     if k in name), "PyTorch ops")
+        key = {"ntt_pass_kernel<false>": "ntt",
+               "ntt_pass_kernel<true>": "lde"}.get(key, key)
         gt, gc = groups.get(key, (0.0, 0))
         groups[key] = (gt + t, gc + c)
     for key, (t, c) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
@@ -1815,36 +1850,47 @@ def phase_eval(dev, prover, lde):
     return rows
 
 
-def _plain_equal(dev, ex, kernel_raw, what):
-    """ex's proof with the plain versions, trace build included: the same
-    bytes as with the kernels."""
+def _plain_equal(dev, ex, kernel_raw, what, trace=None):
+    """ex's proof with the plain versions, the plain trace build included
+    (or on `trace`, a trace built by the plain version before, kept on the
+    host so that it adds to no path's peak device memory): the same bytes
+    as with the kernels. Returns the trace it proved, on the host."""
     from certificate_stark_tpu_torch.engine.prover import Prover
     from certificate_stark_tpu_torch.ops import kernels as K
+    built = trace is None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with K.plain_versions():
         prover = Prover(ex.air(), device=dev)
-        raw = prover.prove(ex.trace).to_bytes()
+        trace = ex.trace if built else trace.to(dev)
+        raw = prover.prove(trace).to_bytes()
     torch.cuda.synchronize()
-    log(f"{what}: prove with plain versions (trace build and prover set-up "
-        f"included): {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    log(f"{what}: prove with plain versions ("
+        + ("trace build and prover set-up included" if built else
+           "prover set-up included, on the plain trace built before")
+        + f"): {(time.perf_counter() - t0) * 1e3:.1f} ms")
     check(raw == kernel_raw, f"{what}: the proof with kernels differs from "
           "the plain one")
     log(f"{what}: proofs with kernels and with plain versions are equal, "
         f"sha256 {hashlib.sha256(raw).hexdigest()[:16]}...")
+    return trace.cpu()
 
 
-def phase_tx_plain(dev, ex, kernel_raw, what="bench options"):
-    """The 128-transaction proof with the plain versions."""
-    _plain_equal(dev, ex, kernel_raw, f"{TX_COUNT} tx, {what}")
+def phase_tx_plain(dev, ex, kernel_raw, what="bench options", trace=None):
+    """The 128-transaction proof with the plain versions; the cubic paths
+    on the same witness reuse the base path's plain trace (`trace`), which
+    that proof's bytes, and phase_trace_kernel, hold equal to the trace
+    kernel's. Returns the plain trace."""
+    return _plain_equal(dev, ex, kernel_raw, f"{TX_COUNT} tx, {what}", trace)
 
 
-def phase_sha_paths(dev, ex):
+def phase_sha_paths(dev, ex, plain_trace):
     """The two SHA main paths on ex's 128-transaction witness: the example
     CLI's cubic defaults with --hash-fn sha3, and bench.py's options with
     hash_fn sha256. Each: the timed main-path run with its launches, a
     profile, the port's verifier (tampered copies rejected). The sha3 proof
-    is proven again with the plain versions; the sha256 proof equals the
+    is proven again with the plain versions (on `plain_trace`, the plain
+    trace of ex's witness); the sha256 proof equals the
     pinned TX128_SHA256_PATH, and its path's plain versions run at 16
     transactions (seed 42), on a proof made with the kernels there.
     Returns the launch counts of both paths."""
@@ -1865,7 +1911,7 @@ def phase_sha_paths(dev, ex):
         del prover
         phase_verify(path, raw, f"{TX_COUNT} tx, {what}")
         if key == "tx128_sha3_cubic":
-            phase_tx_plain(dev, path, raw, what)
+            phase_tx_plain(dev, path, raw, what, plain_trace)
             continue
         sha = hashlib.sha256(raw).hexdigest()
         check((sha, len(raw)) == TX128_SHA256_PATH,
@@ -2100,9 +2146,8 @@ def phase_tx1024(dev, witness, latency_ns):
     (`tx1024_cubic`), each timed by phase after a warm-up (_timed_proof;
     no `ex.prove()` at this size), verified by the port's verifier (two
     tampered copies rejected); the base one profiled, and its trace LDE
-    measured in column groups and whole (_lde_peaks). Both equal the
-    pinned proofs of
-    TX1024_VECTOR. The base proof's bytes go to build/tx1024_base.proof.
+    phase timed through the kernels and the plain versions (_lde_peaks).
+    Both equal the pinned proofs of TX1024_VECTOR. The base proof's bytes go to build/tx1024_base.proof.
     Returns the launch counts of both paths."""
     from certificate_stark_tpu_torch.engine.options import ProofOptions
     vectors = os.path.join(ROOT, "tests", "vectors")
@@ -2151,17 +2196,33 @@ def phase_tx1024(dev, witness, latency_ns):
 
 
 def _lde_peaks(prover, trace):
-    """The trace LDE of `prover`'s chunked domain in column groups (the
-    prover's way) and whole: equal values, and the peak device memory each
-    adds to what is allocated before it, and its time."""
+    """The trace LDE phase of `prover` (iNTT, then LDE) through the ntt and
+    lde kernels and through their plain versions, the latter in the column
+    groups the prover used before the lde kernel (at most chunk points of
+    LDE a group): equal values; each route's time (host clock around
+    synchronized work) and the peak device memory it adds to what is
+    allocated before it."""
+    from certificate_stark_tpu_torch.ops import kernels as K
     from certificate_stark_tpu_torch.ops import ntt as NTT
-    coeffs = NTT.intt(trace)
+    w, b, bn, off = trace.shape[0], prover.b, prover.bn, prover.offset
+    g = max(1, w * prover.chunk // bn)
+
+    def plain():
+        with K.plain_versions():
+            coeffs = NTT.intt(trace)
+            out = torch.empty((w, bn), dtype=torch.int64, device=trace.device)
+            for r0 in range(0, w, g):
+                out[r0:r0 + g] = NTT.lde_from_coeffs(coeffs[r0:r0 + g], b, off)
+        return out
+
     out = {}
     for label, fn in (
-            ("in column groups", lambda: prover._lde_from_coeffs(coeffs)),
-            ("whole", lambda: NTT.lde_from_coeffs(coeffs, prover.b,
-                                                  prover.offset))):
+            ("through the kernels (ntt, lde)", lambda: prover.phase_trace(
+                trace)[1]),
+            (f"through the plain versions (column groups of {g} rows)",
+             plain)):
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2169,11 +2230,142 @@ def _lde_peaks(prover, trace):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         peak = (torch.cuda.max_memory_allocated() - base) / 2**20
-        log(f"  trace LDE [{trace.shape[0]}, {prover.bn}] {label}: "
-            f"{ms:.1f} ms, peak {peak:.0f} MiB above the {base / 2**20:.0f} "
-            f"MiB allocated before it")
-    check(torch.equal(*out.values()), "the trace LDE in column groups "
-          "differs from the whole one")
+        log(f"  trace LDE phase (iNTT, LDE) [{w}, {prover.n}] -> [{w}, {bn}] "
+            f"{label}: {ms:.1f} ms, peak {peak:.0f} MiB above the "
+            f"{base / 2**20:.0f} MiB allocated before it")
+    check(torch.equal(*out.values()), "the trace LDE through the kernels "
+          "differs from the plain versions'")
+
+
+def _ntt_cost(C, n, blowup=1, inverse=False, lde=False):
+    """Bytes (each input read once, each output written once) and 32-bit
+    multiplies (MULS_PER_MMUL a Montgomery multiply: one a butterfly, one
+    a point's coset factor in an LDE, one a point's 1/n in an inverse) of
+    the transform of C columns of n points, or of their LDE of `blowup`
+    cosets."""
+    L = n.bit_length() - 1
+    mmuls = C * blowup * (n // 2 * L + (n if lde else 0)) \
+        + (C * n if inverse else 0)
+    return 8 * C * n * (1 + blowup), mmuls * MULS_PER_MMUL
+
+
+def phase_ntt(dev, shapes=None):
+    """The ntt and lde kernels (csrc/ntt.cu) bit for bit against their
+    plain versions on the card (run on column slices of at most
+    NTT_PLAIN_SLICE output points): single columns of 2^0 .. 2^23 (the
+    LDE at blowup 8, or less where the output would pass 2^23), blowups
+    up to 2^19 on 1 .. 32 points, the all-(p - 1) input, every shape in
+    `shapes` (the wrappers' records of the paths run: {"ntt": {(C, n,
+    inverse)}, "lde": {(C, n, blowup, offset)}}) or, without it, NTT_MAIN
+    and LDE_MAIN, and the 1024-transaction trace LDE [94, 2^20] -> 2^23.
+    Then each kernel timed (CUDA events) at NTT_TIMED / LDE_TIMED beside
+    its bound, its passes and their blocks, the plain version's time at
+    the row's shape, and the ptxas report. Returns the two rows of the
+    kernels line."""
+    from certificate_stark_tpu_torch.ops import field as F
+    from certificate_stark_tpu_torch.ops import kernels as K
+    rand = _randoms(dev)
+    gen = F.GENERATOR
+    err = {"ntt": 0, "lde": 0}
+    count = {"ntt": 0, "lde": 0}
+
+    def held(name, got, plain_of, C, width, what):
+        step = max(1, NTT_PLAIN_SLICE // width)
+        e = 0
+        with K.plain_versions():
+            for c0 in range(0, C, step):
+                exp = plain_of(slice(c0, c0 + step))
+                e = max(e, int((got[c0:c0 + step] - exp).abs().max()))
+                del exp
+        err[name] = max(err[name], e)
+        count[name] += 1
+        check(e == 0, f"{name} differs from its plain version: {what}")
+
+    def check_ntt(x, inverse, what):
+        got = K.ntt(x, inverse)
+        held("ntt", got, lambda s: K.ntt(x[s], inverse), x.shape[0],
+             x.shape[1], f"{what}, [{x.shape[0]}, {x.shape[1]}], "
+             f"inverse {inverse}")
+
+    def check_lde(x, b, o, what):
+        got = K.lde(x, b, o)
+        held("lde", got, lambda s: K.lde(x[s], b, o), x.shape[0],
+             b * x.shape[1], f"{what}, [{x.shape[0]}, {x.shape[1]}], "
+             f"blowup {b}, offset {o}")
+
+    t0 = time.perf_counter()
+    for L in range(NTT_CHECK_LOG + 1):
+        x = rand(1, 1 << L)
+        check_ntt(x, False, "a single column")
+        check_ntt(x, True, "a single column")
+        check_lde(x, min(8, 1 << (NTT_CHECK_LOG - L)), gen, "a single column")
+    for L, lb in ((0, 12), (1, 12), (1, 19), (2, 16), (5, 12)):
+        check_lde(rand(3, 1 << L), 1 << lb, 7, "a large blowup")
+    full = torch.full(NTT_FULL, F.P - 1, dtype=torch.int64, device=dev)
+    check_ntt(full, False, "all p - 1")
+    check_ntt(full, True, "all p - 1")
+    check_lde(full[:, :NTT_FULL[1] >> 3].contiguous(), 8, gen, "all p - 1")
+    del full
+    ntt_shapes = set(NTT_MAIN) if shapes is None else set(shapes["ntt"])
+    lde_shapes = {(C, n, b, gen) for C, n, b in LDE_MAIN} \
+        if shapes is None else set(shapes["lde"])
+    lde_shapes.add(LDE_BIG + (gen,))
+    for C, n, inverse in sorted(ntt_shapes):
+        check_ntt(rand(C, n), inverse, "a path's shape")
+    for C, n, b, o in sorted(lde_shapes):
+        check_lde(rand(C, n), b, o, "a path's shape")
+    torch.cuda.synchronize()
+    log(f"ntt, lde == plain: {count['ntt']} and {count['lde']} checks "
+        f"({len(ntt_shapes)} and {len(lde_shapes)} of them the paths' "
+        f"shapes), bit for bit; {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    rows = []
+    for name, timed, row in (("ntt", NTT_TIMED, NTT_ROW),
+                             ("lde", LDE_TIMED, LDE_ROW)):
+        by_shape = []
+        for C, n, arg in timed:
+            x = rand(C, n)
+            if name == "ntt":
+                fn = lambda: K.ntt(x, arg)                      # noqa: E731
+                nbytes, muls = _ntt_cost(C, n, inverse=arg)
+                plan = K.ntt_plan(n)
+            else:
+                fn = lambda: K.lde(x, arg, gen)                 # noqa: E731
+                nbytes, muls = _ntt_cost(C, n, arg, lde=True)
+                plan = K.ntt_plan(n, arg)
+            ms = cuda_ms(fn, 5)
+            bnd, by = bound_ms(nbytes, muls)
+            entry = dict(shape=[C, n], ms=ms, bound_ms=bnd, bound_by=by,
+                         passes=[(ps["log"], ps["log_R"], ps["log_G"],
+                                  ps["blocks"] * C) for ps in plan],
+                         **({"inverse": arg} if name == "ntt"
+                            else {"blowup": arg}))
+            if (C, n, arg) == row:
+                torch.cuda.empty_cache()
+                entry["plain_ms"] = _plain_timed(fn)[1]
+            by_shape.append(entry)
+            log(f"{name} [{C}, {n}] {'inverse' if name == 'ntt' else 'blowup'}"
+                f" {arg}: {ms:.4f} ms, bound {bnd:.4f} ms ({by}; "
+                f"{100 * bnd / ms:.1f}%), passes (log2 n_p, log2 R, log2 G, "
+                f"blocks) {entry['passes']}"
+                + (f", plain {entry['plain_ms']:.1f} ms"
+                   if "plain_ms" in entry else ""))
+            del x
+            torch.cuda.empty_cache()
+        main = by_shape[0]
+        use = _ptxas_usage("ntt", f"ntt_pass_kernelILb{int(name == 'lde')}E")
+        log(f"{name}: ptxas {use}")
+        rows.append(dict(
+            name=name, route="cuda",
+            source="certificate_stark_tpu_torch/csrc/ntt.cu",
+            replaces=("certificate_stark_tpu/ops/ntt.py:97" if name == "ntt"
+                      else "certificate_stark_tpu/ops/ntt.py:326"),
+            max_abs_err=err[name], library_ms=None, shape=main["shape"],
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by")},
+            ms_by_shape=by_shape, checks=count[name], **use))
+    return rows
 
 
 def phase_chunked128(dev, ex, raw):
@@ -2289,7 +2481,8 @@ def _sharded_rank(mesh, jobs, warm):
             stats=copy.deepcopy(mesh.stats),
             launches={fn.__name__: fn.launches for fn in K.WRAPPERS},
             peak=torch.cuda.max_memory_allocated(dev),
-            block=(prover.j_lo, prover.j_hi), chunk=prover.chunk)
+            block=(prover.j_lo, prover.j_hi), chunk=prover.chunk,
+            shapes=dict(ntt=set(K.ntt.shapes), lde=set(K.lde.shapes)))
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         again = prover.prove(trace).to_bytes()
@@ -2367,9 +2560,9 @@ def _report_sharded(jobs, results, backend, singles=None):
         total = {k: sum(p["launches"][k] for p in per)
                  for k in per[0]["launches"]}
         hash_fn = job["air"][3]["hash_fn"]
-        for k in ("f63_mul",) + (("rescue_permutation",) if hash_fn ==
-                                 "rescue" else (f"{hash_fn}_leaves",
-                                                f"{hash_fn}_tree")):
+        for k in ("f63_mul", "ntt") + (("rescue_permutation",) if hash_fn ==
+                                        "rescue" else (f"{hash_fn}_leaves",
+                                                       f"{hash_fn}_tree")):
             check(all(p["launches"][k] > 0 for p in per),
                   f"sharded {name}: {k} not launched on every rank")
         # one evaluation (transaction AIR) and composition a segment a rank
@@ -2396,7 +2589,8 @@ def phase_parallel(dev, ex):
     128-transaction base proof of ex (bench options), each rank's proof
     equal to the pinned bytes. The kernels are built (phase_build) before
     the ranks start; the ranks only load them. Returns the launches of the
-    128-transaction run summed over the ranks (`sharded4_tx128`)."""
+    128-transaction run summed over the ranks (`sharded4_tx128`), and the
+    ntt and lde shapes the ranks launched (for phase_ntt)."""
     from certificate_stark_tpu_torch.engine.options import ProofOptions
     from certificate_stark_tpu_torch.models import rescue_chain as RC
     from certificate_stark_tpu_torch.models import transaction as TX
@@ -2435,7 +2629,12 @@ def phase_parallel(dev, ex):
         f"{time.perf_counter() - t0:.1f} s (spawn included), traces and "
         f"witnesses {prep:.1f} s")
     launches = _report_sharded(jobs, results, "gloo")
-    return launches["tx128"]
+    shapes = {"ntt": set(), "lde": set()}
+    for res in results:
+        for job in res.values():
+            for k in shapes:
+                shapes[k] |= job["shapes"][k]
+    return launches["tx128"], shapes
 
 
 def _single_card(dev, air, trace):
@@ -2624,15 +2823,23 @@ def run(dev, mode, t_start, witness):
     from certificate_stark_tpu_torch.engine.options import ProofOptions
     from certificate_stark_tpu_torch.engine.prover import Prover
     from certificate_stark_tpu_torch.models import transaction as TX
+    from certificate_stark_tpu_torch.ops import kernels as K
     from certificate_stark_tpu_torch.utils import curve as CV
     if mode == ["--sharded"]:
         # the default run's sharded phase alone (four ranks on this card)
         CV.set_curve("fp2")
         ex = TX.TransactionExample(TX_COUNT, ProofOptions(**BENCH_OPTS),
                                    depth=TX_DEPTH, device=dev)
-        launches = phase_parallel(dev, ex)
+        launches = phase_parallel(dev, ex)[0]
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps(dict(launches_by_path={"sharded4_tx128": launches})))
+        print(card_line())
+        return 0
+    if mode == ["--ntt"]:
+        # the ntt and lde kernels alone, at the transaction paths' shapes
+        rows = phase_ntt(dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps(dict(ntt=rows)))
         print(card_line())
         return 0
     if mode == ["--eval"]:
@@ -2679,13 +2886,14 @@ def run(dev, mode, t_start, witness):
         f"{time.perf_counter() - t0:.1f} s")
     rows.append(phase_trace_kernel(dev, ex, latency_ns))
     prover, raw, tx_launches = phase_tx_full(dev, ex)
+    _lde_peaks(prover, ex.trace)
     lde = phase_tx_profile(dev, ex, prover)
     rows += phase_eval(dev, prover, lde)
     del lde
-    phase_tx_plain(dev, ex, raw)
+    plain_trace = phase_tx_plain(dev, ex, raw)
     phase_chunked128(dev, ex, raw)
     phase_verify(ex, raw, f"{TX_COUNT} tx, bench options")
-    sharded_launches = phase_parallel(dev, ex)
+    sharded_launches, sharded_shapes = phase_parallel(dev, ex)
     # the example CLI's defaults on the same witness
     cli = copy.copy(ex)
     cli.options = ProofOptions(**CLI_OPTS)
@@ -2693,12 +2901,16 @@ def run(dev, mode, t_start, witness):
     cli_prover, cli_raw, cli_launches = phase_tx_full(dev, cli, what)
     profile_tx_proof(cli, cli_prover, f"{TX_COUNT} tx, {what}")
     phase_verify(cli, cli_raw, f"{TX_COUNT} tx, {what}")
-    phase_tx_plain(dev, cli, cli_raw, what)
+    phase_tx_plain(dev, cli, cli_raw, what, plain_trace)
     del prover, cli_prover   # each path's peak memory holds its own Prover
-    sha_launches = phase_sha_paths(dev, ex)
+    sha_launches = phase_sha_paths(dev, ex, plain_trace)
+    del plain_trace
     phase_subair_goldens(dev)
     sub_launches, sub_trace_ms = phase_subairs(dev)
     tx1024_launches = phase_tx1024(dev, witness, latency_ns)
+    rows += phase_ntt(dev, {
+        "ntt": K.ntt.shapes | sharded_shapes["ntt"],
+        "lde": K.lde.shapes | sharded_shapes["lde"]})
     paths = {"chain1024": chain_launches, "tx128": tx_launches,
              "tx128_cubic": cli_launches, **sha_launches, **sub_launches,
              **tx1024_launches, **grind_launches,

@@ -1,6 +1,7 @@
 """The port's NTT and LDE (certificate_stark_tpu_torch/ops/ntt.py) against
-the JAX package on the CPU, 3 columns at 2^4..2^10. Tolerance: exact
-equality.
+the JAX package on the CPU, 3 columns at 2^4..2^10, and the LDE from
+coefficients at 1 and 2 points with blowups up to 2^8 and a shifted
+offset. Tolerance: exact equality.
 
 Every size is held against the JAX package's host transform
 (utils/poly_host.py, Python ints); the device transform ops/ntt.py, whose
@@ -51,6 +52,27 @@ def test_lde_matches_jax_host_transform(logn, blowup):
     cols = _ints(logn)
     got = F.to_ints(N.lde(F.from_ints(cols, "cpu"), blowup, OFFSET))
     assert [list(r) for r in got] == [_host_lde(c, blowup) for c in cols]
+
+
+def _host_lde_from_coeffs(coeffs, blowup, offset):
+    scaled = [c * pow(offset, i, P) % P for i, c in enumerate(coeffs)]
+    return JPH.ntt(scaled + [0] * ((blowup - 1) * len(coeffs)))
+
+
+@pytest.mark.parametrize("logn,blowup", [(0, 1), (0, 2), (0, 256), (1, 1),
+                                         (1, 2), (1, 256), (4, 256)])
+def test_lde_from_coeffs_blowups_and_shifted_offset(logn, blowup):
+    """The sequence assertions' LDE (engine/boundary.py `_sequence_evals`:
+    blowup bn / m, the offset times g^-first) and the periodic columns'
+    (n = 1 and 2 points, blowups far above 8)."""
+    cols = _ints(logn)
+    g_first = pow(JPH.root_of_unity(1 << 6), 5, P)
+    shift = OFFSET * pow(g_first, P - 2, P) % P
+    for offset in (OFFSET, shift):
+        got = F.to_ints(N.lde_from_coeffs(F.from_ints(cols, "cpu"), blowup,
+                                          offset))
+        assert [list(r) for r in got] == \
+            [_host_lde_from_coeffs(c, blowup, offset) for c in cols]
 
 
 @pytest.mark.parametrize("logn", [4, 10])
