@@ -208,8 +208,8 @@ class Prover:
         [d, k, n]."""
         n, k, d = self.n, self.k, self.d
         # coefficients over the coset, then H_i(x) with H = sum x^i H_i(x^k)
-        o_inv = pow(self.offset, F.P - 2, F.P)
-        coeffs = NTT.coset_scale(NTT.intt(comp), o_inv)
+        # (the scale by o^-i is fused into the inverse transform's last pass)
+        coeffs = NTT.intt(comp, scale_by=pow(self.offset, F.P - 2, F.P))
         return coeffs[:, :k * n].reshape(d, n, k).transpose(1, 2) \
             .contiguous()                                       # [d, k, n]
 

@@ -274,8 +274,13 @@ def tree_plain(merge_plain, leaves: torch.Tensor) -> torch.Tensor:
 # the NTT and the coset LDE
 # ---------------------------------------------------------------------------
 # A block of csrc/ntt.cu holds NTT_TILE points in shared memory (its
-# NTT_TILE_LOG): R cosets x G groups x one pass's n_p points.
+# NTT_TILE_LOG): R cosets x G groups x one pass's n_p points, whose stages
+# run in at most NTT_MAX_ROUNDS register rounds of at most NTT_KMAX; the
+# LDE's first round at most NTT_LDE_K0 (its units run R cosets each).
 NTT_TILE = 1 << 13
+NTT_MAX_ROUNDS = 4
+NTT_KMAX = 4
+NTT_LDE_K0 = 2
 
 
 def _log2(n: int, what: str) -> int:
@@ -361,13 +366,46 @@ def lde_plain(coeffs: torch.Tensor, blowup: int,
     return ntt_plain(scaled)
 
 
-def ntt_plan(n: int, blowup: int = 1, tile: int = NTT_TILE) -> list:
-    """The passes of csrc/ntt.cu for a transform of n points (an LDE of
-    blowup cosets): one pass where n fits a tile, else the fewest passes
-    of at most tile / 2 points each (sizes as even as possible, the larger
-    first), so that every pass's block holds G >= 2 groups. Each pass:
-    log (log2 n_p), log_R (cosets a block), log_G (groups a block), points
-    and smem_bytes a block, blocks a column."""
+def _rounds(lp: int, first=None) -> list:
+    """log2 sizes of csrc/ntt.cu's register rounds for a pass of 2^lp
+    points: the fewest of at most NTT_KMAX stages, as even as possible, the
+    larger first; with `first`, a first round of at most that many."""
+    if lp == 0:
+        return [0]
+    if first is not None and first < lp:
+        return [first] + _rounds(lp - first)
+    count = -(-lp // NTT_KMAX)
+    return [lp // count + (i < lp % count) for i in range(count)]
+
+
+def _swizzle(log_RG: int, k0: int, rounds: int, coset_loop: bool) -> tuple:
+    """(c, sh, mask) of csrc/ntt.cu `slot`: a tile slot s is stored at
+    s ^ (((s >> c) & mask) << sh). The first round's lanes step along u
+    (coset_loop: not) and then along hb, whose lowest bit sits at slot bit
+    c = log2(RG) + k0; the XOR brings those bits below bit 4, where the
+    lanes' u bits do not reach, so that 16 lanes' u64 slots take 16
+    distinct bank pairs. The later rounds' lanes step along u and lo: 16
+    consecutive slots, permuted within their aligned group of 16."""
+    if rounds == 1:
+        return (1, 0, 0)
+    if coset_loop:
+        return (log_RG + k0, 0, 15)
+    if log_RG >= 4:
+        return (1, 0, 0)
+    return (log_RG + k0, log_RG, (1 << (4 - log_RG)) - 1)
+
+
+def ntt_plan(n: int, blowup: int = 1, tile: int = NTT_TILE,
+             lde: bool = False) -> list:
+    """The passes of csrc/ntt.cu for a transform of n points (lde: an LDE
+    of blowup cosets): one pass where n fits a tile, else the fewest
+    passes of at most tile / 2 points each (sizes as even as possible, the
+    larger first), so that every pass's block holds G >= 2 groups. Each
+    pass: log (log2 n_p), log_R (cosets a block), log_G (groups a block),
+    rounds (log2 of each register round's unit; the LDE's first pass
+    starts with one of at most NTT_LDE_K0, whose units run the R cosets),
+    swizzle (c, sh, mask of the tile), points and smem_bytes a block (the
+    tile and the n_p staged twiddle slots), blocks a column."""
     L, lb = _log2(n, "ntt_plan n"), _log2(blowup, "ntt_plan blowup")
     tl = _log2(tile, "ntt_plan tile")
     if tl < 2:
@@ -382,10 +420,24 @@ def ntt_plan(n: int, blowup: int = 1, tile: int = NTT_TILE) -> list:
         log_R = min(lb, tl - lp)
         log_G = min(L - lp if p == 0 else lgT, tl - lp - log_R)
         pts = 1 << (log_R + log_G + lp)
-        passes.append(dict(log=lp, log_R=log_R, log_G=log_G, points=pts,
-                           smem_bytes=8 * pts, blocks=(blowup * n) // pts))
+        coset_loop = lde and p == 0
+        rounds = _rounds(lp, NTT_LDE_K0 if coset_loop else None)
+        passes.append(dict(
+            log=lp, log_R=log_R, log_G=log_G, rounds=rounds,
+            swizzle=_swizzle(log_R + log_G, rounds[0], len(rounds),
+                             coset_loop),
+            points=pts, smem_bytes=8 * (pts + (1 << lp)),
+            blocks=(blowup * n) // pts))
         lgT += lp
     return passes
+
+
+def _pass_desc(ps: dict):
+    """A pass's layout as csrc/ntt.cu `fill` reads it: log_R, log_G, the
+    number of rounds, their NTT_MAX_ROUNDS log2 sizes, the swizzle."""
+    ks = ps["rounds"] + [0] * (NTT_MAX_ROUNDS - len(ps["rounds"]))
+    return (_int * 10)(ps["log_R"], ps["log_G"], len(ps["rounds"]), *ks,
+                       *ps["swizzle"])
 
 
 def _pow_ints(base: int, count: int) -> list:
@@ -396,42 +448,83 @@ def _pow_ints(base: int, count: int) -> list:
     return out
 
 
-def _split_table(base: int, log_count: int, device):
+def _split_table(base: int, log_count: int, device, hi_factor: int = 1):
     """base^e for e < 2^log_count as lo[e mod 2^h] * hi[e >> h] (h =
-    ceil(log_count / 2)): (lo, hi, h), Montgomery."""
+    ceil(log_count / 2)), hi times hi_factor: (lo, hi, h), Montgomery."""
     h = (log_count + 1) // 2
-    lo = _pow_ints(base, 1 << h)
-    hi = _pow_ints(pow(base, 1 << h, P), 1 << (log_count - h))
+    lo, hi, cur = _pow_ints(base, 1 << h), [], hi_factor % P
+    for _ in range(1 << (log_count - h)):
+        hi.append(_mont(cur))
+        cur = cur * pow(base, 1 << h, P) % P
     return (torch.tensor(lo, dtype=torch.int64, device=device),
             torch.tensor(hi, dtype=torch.int64, device=device), h)
 
 
+def round_twiddles(w: int, lp: int, rounds) -> list:
+    """csrc/ntt.cu's staged twiddles of a pass of 2^lp points with root w
+    (of order 2^lp) and register rounds `rounds`: for each round (s stages
+    before it, k in it), stage t, ml < 2^t, lo < 2^s, the stage's twiddle
+    w^(((ml << s) | lo) << (lp - 1 - s - t)); 2^lp - 1 standard-form ints
+    (one 1 where lp = 0)."""
+    out, s = [], 0
+    for k in rounds:
+        for t in range(k):
+            out += [pow(w, ((ml << s) | lo) << (lp - 1 - s - t), P)
+                    for ml in range(1 << t) for lo in range(1 << s)]
+        s += k
+    return out or [1]
+
+
 NttTables = collections.namedtuple("NttTables",
-                                   "stages tw_lo tw_hi h_tw ninv")
+                                   "rounds tw_lo tw_hi tw_hi0 h_tw ninv")
 
 
 @functools.lru_cache(maxsize=64)
-def ntt_tables(n: int, inverse: bool, logs: tuple, device: str) -> NttTables:
-    """csrc/ntt.cu's tables for a transform of n points with passes of
-    log2 sizes `logs`, from ops/ntt.py root_of_unity (the inverse root for
-    the inverse): each pass's w_{n_p}^k (k < n_p / 2), w_n^e split in two,
-    and 1/n, Montgomery; cached."""
+def ntt_tables(n: int, inverse: bool, passes: tuple,
+               device: str) -> NttTables:
+    """csrc/ntt.cu's tables for a transform of n points with passes
+    ((log2 n_p, rounds), ...), from ops/ntt.py root_of_unity (the inverse
+    root for the inverse): each pass's round twiddles, w_n^e split in two
+    (tw_lo, tw_hi), the first pass's high table (tw_hi0: times 1/n for the
+    inverse, which then needs no scale at its last pass where it has two
+    passes or more), and 1/n, Montgomery; cached."""
     w = _root(n, inverse)
-    stages = tuple(torch.tensor(_pow_ints(pow(w, n >> lp, P),
-                                          max(1 << lp >> 1, 1)),
-                                dtype=torch.int64, device=device)
-                   for lp in logs)
+    rounds = tuple(torch.tensor([_mont(v) for v in round_twiddles(
+        pow(w, n >> lp, P), lp, ks)], dtype=torch.int64, device=device)
+                   for lp, ks in passes)
+    ninv = pow(n, P - 2, P)
     tw_lo, tw_hi, h = _split_table(w, n.bit_length() - 1, device)
-    return NttTables(stages, tw_lo, tw_hi, h, _mont(pow(n, P - 2, P)))
+    tw_hi0 = _split_table(w, n.bit_length() - 1, device, ninv)[1] \
+        if inverse else tw_hi
+    return NttTables(rounds, tw_lo, tw_hi, tw_hi0, h, _mont(ninv))
+
+
+@functools.lru_cache(maxsize=8)
+def direct_table(n: int) -> torch.Tensor:
+    """w_n^e for e < n, Montgomery (the LDE's store twiddles), on the host
+    (pinned where there is a card); cached. An LDE copies it to its device
+    for its own launches: at 2^20 it is 8 MB that would otherwise stay on
+    the card through a proof's peak."""
+    tbl = _powers_plain(_root(n), n, "cpu")
+    return tbl.pin_memory() if torch.cuda.is_available() else tbl
 
 
 @functools.lru_cache(maxsize=256)
 def lde_tables(n: int, blowup: int, offset: int, device: str):
-    """The LDE's coset tables: offset^t (t < n) and w_bn^e (e < blowup n),
-    each split in two: ((o_lo, o_hi, h_o), (c_lo, c_hi, h_c)); cached."""
+    """The LDE's w_bn^e (e < blowup n) and offset^t (t < n), each split in
+    two: ((bw_lo, bw_hi, h_bw), (o_lo, o_hi, h_o)); cached."""
     bn = blowup * n
-    return (_split_table(offset % P, n.bit_length() - 1, device),
-            _split_table(_root(bn), bn.bit_length() - 1, device))
+    return (_split_table(_root(bn), bn.bit_length() - 1, device),
+            _split_table(offset % P, n.bit_length() - 1, device))
+
+
+@functools.lru_cache(maxsize=64)
+def scale_tables(n: int, scale_by: int, device: str, ninv: bool = True):
+    """The fused inverse's s^t (t < n) split in two, times n^-1 in the
+    high table where `ninv` (one pass: no twiddle carries it): (s_lo,
+    s_hi, h_s); cached."""
+    return _split_table(scale_by % P, n.bit_length() - 1, device,
+                        pow(n, P - 2, P) if ninv else 1)
 
 
 # ---------------------------------------------------------------------------
@@ -525,14 +618,14 @@ _ENTRY_POINTS = {
                 + [_int, _int, _ll, _vp, _vp],
                 "compose_occupancy": [_int] * 5 + [_ll] + [_IP] * 3},
     # src, dst, C, log2 n, (log2 b,) the passes' log2 sizes and their
-    # count, the pass, (log2 R,) log2 G, the pass's stage table, the split
-    # w_n table and its split; ntt: 1/n and whether to apply it; lde: the
-    # split offset and w_bn tables; stream
-    "ntt": {"ntt_launch": [_vp, _vp, _ll, _int, _IP, _int, _int, _int]
-            + [_vp] * 3 + [_int, _ll, _int, _vp],
-            "lde_launch": [_vp, _vp, _ll, _int, _int, _IP, _int, _int, _int,
-                           _int] + [_vp] * 3 + [_int] + [_vp] * 2 + [_int]
-            + [_vp] * 2 + [_int, _vp]},
+    # count, the pass, its layout (_pass_desc), its round twiddles; ntt:
+    # the split w_n table and its split, the split scale table, its split,
+    # 1/n and the scale kind; lde: the w_n table, the split w_bn and
+    # offset tables and their splits; stream
+    "ntt": {"ntt_launch": [_vp, _vp, _ll, _int, _IP, _int, _int, _IP]
+            + [_vp] * 3 + [_int] + [_vp] * 2 + [_int, _ll, _int, _vp],
+            "lde_launch": [_vp, _vp, _ll, _int, _int, _IP, _int, _int, _IP]
+            + [_vp] * 4 + [_int] + [_vp] * 2 + [_int, _vp]},
 }
 
 
@@ -1122,31 +1215,88 @@ def _transform_args(name: str, a: torch.Tensor):
             torch.cuda.current_stream(a.device).cuda_stream)
 
 
-def ntt(a: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+def _passes(name: str, src: torch.Tensor, out: torch.Tensor, n: int,
+            plan: list, rounds: tuple, tail, keep=None) -> list:
+    """One closure a pass of `plan`, launching it on `src` (pass 0) or in
+    place on `out` and counting the launch on the wrapper `name`:
+    ntt_launch or lde_launch, with the pass's round twiddles `rounds[p]`
+    and the entry point's arguments after them, tail(p, last pass); each
+    closure holds `keep` (a table its launch reads)."""
+    C, L = src.shape[0], _log2(n, name)
+    logs = [ps["log"] for ps in plan]
+    lg = (_int * len(logs))(*logs)
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    wrapper, entry = (ntt, "ntt_launch") if name == "ntt" \
+        else (lde, "lde_launch")
+    fns = []
+    for p, ps in enumerate(plan):
+        args = ((src if p == 0 else out).data_ptr(), out.data_ptr(), C, L) \
+            + ((_log2(out.shape[1] // n, "lde blowup"),) if name == "lde"
+               else ()) \
+            + (lg, len(logs), p, _pass_desc(ps), rounds[p].data_ptr()) \
+            + tail(p, p == len(plan) - 1) + (stream,)
+
+        def launch(args=args, keep=keep):
+            _raise_on(getattr(_lib("ntt"), entry)(*args), name)
+            wrapper.launches += 1
+        fns.append(launch)
+    return fns
+
+
+def _ntt_key(plan: list) -> tuple:
+    return tuple((ps["log"], tuple(ps["rounds"])) for ps in plan)
+
+
+def ntt_passes(a: torch.Tensor, out: torch.Tensor, inverse: bool = False,
+               scale_by=None) -> list:
+    """The launches of ntt(a, inverse, scale_by) into out, one closure a
+    pass (the later ones in place on out): for timing a pass alone."""
+    n = a.shape[1]
+    plan = ntt_plan(n)
+    dev = str(a.device)
+    tabs = ntt_tables(n, bool(inverse), _ntt_key(plan), dev)
+    one = len(plan) == 1    # else the first pass's twiddles carry 1/n
+    if scale_by is None:
+        s_lo = s_hi = tabs.tw_lo
+        h_s, scale = 0, int(bool(inverse) and one)
+    else:
+        (s_lo, s_hi, h_s), scale = scale_tables(n, scale_by % P, dev, one), 2
+    return _passes("ntt", a, out, n, plan, tabs.rounds, lambda p, last: (
+        tabs.tw_lo.data_ptr(),
+        (tabs.tw_hi0 if p == 0 else tabs.tw_hi).data_ptr(), tabs.h_tw,
+        s_lo.data_ptr(), s_hi.data_ptr(), h_s, tabs.ninv,
+        scale if last else 0))
+
+
+def _scale_plain(x: torch.Tensor, scale_by: int) -> torch.Tensor:
+    """Value t of the last axis times scale_by^t."""
+    return mul_plain(x, _powers_plain(scale_by, x.shape[-1], x.device))
+
+
+def ntt(a: torch.Tensor, inverse: bool = False,
+        scale_by=None) -> torch.Tensor:
     """NTT (inverse: iNTT with 1/n) along the last axis of a contiguous
     int64 [C, n], natural order in and out: one launch a pass of
     ntt_plan(n), the first from a into the output, the later ones in place.
-    The plain version for a CPU tensor or inside plain_versions().
-    `ntt.shapes` keeps every (C, n, inverse) launched in this process."""
+    With scale_by (a standard-form int, inverse only), value t of the
+    inverse times scale_by^t, a multiply at the last pass's stores: the
+    coefficients over the coset 1/scale_by <w_n> of the values a. The plain
+    version (ntt_plain, and the scale by powers) for a CPU tensor or inside
+    plain_versions(). `ntt.shapes` keeps every (C, n, inverse, scale_by mod
+    p or None) launched in this process."""
+    if scale_by is not None and not inverse:
+        raise ValueError("ntt: scale_by is for the inverse only")
     if use_plain(a):
-        return ntt_plain(a, inverse)
-    L, stream = _transform_args("ntt", a)
+        out = ntt_plain(a, inverse)
+        return out if scale_by is None else _scale_plain(out, scale_by)
+    _transform_args("ntt", a)
     out = torch.empty_like(a)
     if a.shape[0] == 0:
         return out
-    plan = ntt_plan(a.shape[1])
-    logs = tuple(ps["log"] for ps in plan)
-    tabs = ntt_tables(a.shape[1], bool(inverse), logs, str(a.device))
-    lg = (_int * len(logs))(*logs)
-    for p, ps in enumerate(plan):
-        last = p == len(plan) - 1
-        _raise_on(_lib("ntt").ntt_launch(
-            (a if p == 0 else out).data_ptr(), out.data_ptr(), a.shape[0], L,
-            lg, len(logs), p, ps["log_G"], tabs.stages[p].data_ptr(),
-            tabs.tw_lo.data_ptr(), tabs.tw_hi.data_ptr(), tabs.h_tw,
-            tabs.ninv, int(bool(inverse) and last), stream), "ntt")
-        ntt.launches += 1
-    ntt.shapes.add((a.shape[0], a.shape[1], bool(inverse)))
+    for launch in ntt_passes(a, out, inverse, scale_by):
+        launch()
+    ntt.shapes.add((a.shape[0], a.shape[1], bool(inverse),
+                    None if scale_by is None else scale_by % P))
     return out
 
 
@@ -1154,39 +1304,41 @@ ntt.launches = 0
 ntt.shapes = set()
 
 
+def lde_passes(coeffs: torch.Tensor, out: torch.Tensor, blowup: int,
+               offset: int) -> list:
+    """The launches of lde(coeffs, blowup, offset) into out, one closure a
+    pass: for timing a pass alone."""
+    n = coeffs.shape[1]
+    plan = ntt_plan(n, blowup, lde=True)
+    dev = str(coeffs.device)
+    rounds = ntt_tables(n, False, _ntt_key(plan), dev).rounds
+    (bw_lo, bw_hi, h_bw), (o_lo, o_hi, h_o) = lde_tables(
+        n, blowup, offset % P, dev)
+    tw_n = direct_table(n).to(dev, non_blocking=True)
+    return _passes("lde", coeffs, out, n, plan, rounds, lambda p, last: (
+        tw_n.data_ptr(), bw_lo.data_ptr(), bw_hi.data_ptr(), h_bw,
+        o_lo.data_ptr(), o_hi.data_ptr(), h_o), keep=tw_n)
+
+
 def lde(coeffs: torch.Tensor, blowup: int, offset: int) -> torch.Tensor:
     """Coefficients, a contiguous int64 [C, n] -> their evaluations over
     offset * <w_{blowup n}>, [C, blowup n] in natural order (blowup a power
     of two, offset a standard-form int): point r + blowup i is value i of
     the size-n transform of the coefficients times (offset w^r)^t. One
-    launch a pass of ntt_plan(n, blowup). The plain version for a CPU
-    tensor or inside plain_versions(). `lde.shapes` keeps every (C, n,
-    blowup, offset mod p) launched in this process."""
+    launch a pass of ntt_plan(n, blowup, lde=True). The plain version for
+    a CPU tensor or inside plain_versions(). `lde.shapes` keeps every (C,
+    n, blowup, offset mod p) launched in this process."""
     if use_plain(coeffs):
         return lde_plain(coeffs, blowup, offset)
-    L, stream = _transform_args("lde", coeffs)
-    lb = _log2(blowup, "lde blowup")
+    _transform_args("lde", coeffs)
+    _log2(blowup, "lde blowup")
     C, n = coeffs.shape
     out = torch.empty((C, blowup * n), dtype=torch.int64,
                       device=coeffs.device)
     if C == 0:
         return out
-    plan = ntt_plan(n, blowup)
-    logs = tuple(ps["log"] for ps in plan)
-    dev = str(coeffs.device)
-    tabs = ntt_tables(n, False, logs, dev)
-    (o_lo, o_hi, h_o), (c_lo, c_hi, h_c) = lde_tables(n, blowup, offset % P,
-                                                      dev)
-    lg = (_int * len(logs))(*logs)
-    for p, ps in enumerate(plan):
-        _raise_on(_lib("ntt").lde_launch(
-            (coeffs if p == 0 else out).data_ptr(), out.data_ptr(), C, L, lb,
-            lg, len(logs), p, ps["log_R"], ps["log_G"],
-            tabs.stages[p].data_ptr(), tabs.tw_lo.data_ptr(),
-            tabs.tw_hi.data_ptr(), tabs.h_tw, o_lo.data_ptr(),
-            o_hi.data_ptr(), h_o, c_lo.data_ptr(), c_hi.data_ptr(), h_c,
-            stream), "lde")
-        lde.launches += 1
+    for launch in lde_passes(coeffs, out, blowup, offset):
+        launch()
     lde.shapes.add((C, n, blowup, offset % P))
     return out
 

@@ -22,15 +22,22 @@ def root_of_unity(n: int) -> int:
     return pow(F.GENERATOR, (F.P - 1) // n, F.P)
 
 
-def ntt(a: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+def ntt(a: torch.Tensor, inverse: bool = False,
+        scale_by=None) -> torch.Tensor:
     """NTT along the last axis of [..., n] (Montgomery). Forward maps
-    coefficients to evaluations at w^0..w^(n-1); the inverse includes 1/n."""
+    coefficients to evaluations at w^0..w^(n-1); the inverse includes 1/n,
+    and with scale_by value i times scale_by^i (fused into the kernel)."""
     n = a.shape[-1]
-    return K.ntt(a.reshape(-1, n).contiguous(), inverse).reshape(a.shape)
+    return K.ntt(a.reshape(-1, n).contiguous(), inverse,
+                 scale_by).reshape(a.shape)
 
 
-def intt(a: torch.Tensor) -> torch.Tensor:
-    return ntt(a, inverse=True)
+def intt(a: torch.Tensor, scale_by=None) -> torch.Tensor:
+    """Inverse NTT; with scale_by, coefficient i times scale_by^i: with
+    scale_by = 1/offset, the coefficients of the polynomial whose values
+    over offset * <w_n> are a (coset_scale(intt(a), scale_by) in one
+    pass)."""
+    return ntt(a, inverse=True, scale_by=scale_by)
 
 
 def coset_scale(coeffs: torch.Tensor, offset: int) -> torch.Tensor:

@@ -97,7 +97,8 @@ the evaluation and composition kernels' (on a random trace LDE over the
 
     python3 chip_smoke.py --ntt
 
-the ntt and lde kernels' (at the transaction paths' shapes), and
+the ntt and lde kernels' (at the transaction paths' shapes, each pass
+timed alone), and
 
     python3 chip_smoke.py --hashes [blake3|sha256|sha3 ...]
 
@@ -207,16 +208,20 @@ PLAIN_SLICE = 1 << 20
 # The ntt and lde kernels' shapes on the transaction paths, for `--ntt`
 # (the default run checks the shapes the wrappers recorded instead): the
 # trace's iNTT and LDE (94 columns, blowup 8) at 128 and 1024 transactions,
-# the composition's iNTT over the LDE domain ([d, bn]) and its LDE ([8 d,
-# n]: k = 8 columns a coordinate), base and cubic. NTT_ROW and LDE_ROW are
-# the kernels line's rows (the 128-transaction trace LDE phase); the
-# 1024-transaction ones are timed too.
-NTT_MAIN = tuple((C, n, True) for n in (1 << 17, 1 << 20)
-                 for C in (94, 1, 3)) + ((1, 1 << 23, True),
-                                         (3, 1 << 23, True))
+# the composition's inverse over the LDE domain ([d, bn]; with the coset
+# scale by 1/offset fused, "1/o", and without it) and
+# its LDE ([8 d, n]: k = 8 columns a coordinate), base and cubic. An ntt
+# shape is (C, n, inverse, scale). NTT_ROW and LDE_ROW are the kernels
+# line's rows (the 128-transaction trace LDE phase); the 1024-transaction
+# ones and the fused [3, 2^23] are timed too.
+NTT_MAIN = tuple((C, n, True, None) for n in (1 << 17, 1 << 20)
+                 for C in (94, 1, 3)) + ((1, 1 << 23, True, None),
+                                         (3, 1 << 23, True, None)) \
+    + tuple((d, n, True, "1/o") for n in (1 << 20, 1 << 23) for d in (1, 3))
 LDE_MAIN = tuple((C, n, 8) for n in (1 << 17, 1 << 20) for C in (94, 8, 24))
-NTT_ROW, LDE_ROW = (94, 1 << 17, True), (94, 1 << 17, 8)
-NTT_TIMED = (NTT_ROW, (94, 1 << 20, True), (3, 1 << 23, True))
+NTT_ROW, LDE_ROW = (94, 1 << 17, True, None), (94, 1 << 17, 8)
+NTT_TIMED = (NTT_ROW, (94, 1 << 20, True, None), (3, 1 << 23, True, None),
+             (3, 1 << 23, True, "1/o"))
 LDE_TIMED = (LDE_ROW, (94, 1 << 20, 8), (24, 1 << 20, 8))
 # elements a plain-version NTT or LDE call outputs at once in the checks
 NTT_PLAIN_SLICE = 1 << 25
@@ -1580,11 +1585,11 @@ def profile_tx_proof(ex, prover, what):
                                 "sha3_tree",
                                 "transaction_trace", "transaction_eval",
                                 "compose", "rescue_perm",
-                                "ntt_pass_kernel<false>",
-                                "ntt_pass_kernel<true>")
+                                "ntt_pass_kernel<false",
+                                "ntt_pass_kernel<true")
                     if k in name), "PyTorch ops")
-        key = {"ntt_pass_kernel<false>": "ntt",
-               "ntt_pass_kernel<true>": "lde"}.get(key, key)
+        key = {"ntt_pass_kernel<false": "ntt",
+               "ntt_pass_kernel<true": "lde"}.get(key, key)
         gt, gc = groups.get(key, (0.0, 0))
         groups[key] = (gt + t, gc + c)
     for key, (t, c) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
@@ -2240,34 +2245,49 @@ def _lde_peaks(prover, trace):
 def _ntt_cost(C, n, blowup=1, inverse=False, lde=False):
     """Bytes (each input read once, each output written once) and 32-bit
     multiplies (MULS_PER_MMUL a Montgomery multiply: one a butterfly, one
-    a point's coset factor in an LDE, one a point's 1/n in an inverse) of
-    the transform of C columns of n points, or of their LDE of `blowup`
-    cosets."""
+    a point's coset factor in an LDE, one a point's 1/n, or n^-1 s^t, in
+    an inverse) of the transform of C columns of n points, or of their LDE
+    of `blowup` cosets."""
     L = n.bit_length() - 1
     mmuls = C * blowup * (n // 2 * L + (n if lde else 0)) \
         + (C * n if inverse else 0)
     return 8 * C * n * (1 + blowup), mmuls * MULS_PER_MMUL
 
 
+def _ntt_traffic_ms(C, n, passes, blowup=1, lde=False):
+    """The least time of the kernels' pass structure on the card's memory:
+    each pass reads and writes the array once (the LDE's first reads the
+    coefficients and writes blowup n points a column). A note beside the
+    bound, which counts each input and output once."""
+    width = blowup * n
+    nbytes = 16 * C * width * passes if not lde else \
+        8 * C * n * (1 + blowup) + 16 * C * width * (passes - 1)
+    return nbytes / MEM_BYTES_PER_S * 1e3
+
+
 def phase_ntt(dev, shapes=None):
     """The ntt and lde kernels (csrc/ntt.cu) bit for bit against their
     plain versions on the card (run on column slices of at most
     NTT_PLAIN_SLICE output points): single columns of 2^0 .. 2^23 (the
-    LDE at blowup 8, or less where the output would pass 2^23), blowups
-    up to 2^19 on 1 .. 32 points, the all-(p - 1) input, every shape in
-    `shapes` (the wrappers' records of the paths run: {"ntt": {(C, n,
-    inverse)}, "lde": {(C, n, blowup, offset)}}) or, without it, NTT_MAIN
-    and LDE_MAIN, and the 1024-transaction trace LDE [94, 2^20] -> 2^23.
-    Then each kernel timed (CUDA events) at NTT_TIMED / LDE_TIMED beside
-    its bound, its passes and their blocks, the plain version's time at
-    the row's shape, and the ptxas report. Returns the two rows of the
-    kernels line."""
+    LDE at blowup 8, or less where the output would pass 2^23; the inverse
+    with and without the fused scale), blowups up to 2^19 on 1 .. 32
+    points, the all-(p - 1) input, every shape in `shapes` (the wrappers'
+    records of the paths run: {"ntt": {(C, n, inverse, scale)}, "lde":
+    {(C, n, blowup, offset)}}) or, without it, NTT_MAIN and LDE_MAIN, the
+    composition's fused inverse [d, 2^20] and [d, 2^23], and the
+    1024-transaction trace LDE [94, 2^20] -> 2^23. Then each kernel timed
+    (CUDA events) at NTT_TIMED / LDE_TIMED, whole and a pass at a time,
+    beside its bound and the two-pass traffic floor, its passes (their
+    rounds, blocks, shared memory), the plain version's time at the row's
+    shape, and the ptxas report. Returns the two rows of the kernels
+    line."""
     from certificate_stark_tpu_torch.ops import field as F
     from certificate_stark_tpu_torch.ops import kernels as K
     rand = _randoms(dev)
     gen = F.GENERATOR
+    o_inv = pow(gen, F.P - 2, F.P)
     err = {"ntt": 0, "lde": 0}
-    count = {"ntt": 0, "lde": 0}
+    count = {"ntt": 0, "lde": 0, "fused": 0}
 
     def held(name, got, plain_of, C, width, what):
         step = max(1, NTT_PLAIN_SLICE // width)
@@ -2281,11 +2301,13 @@ def phase_ntt(dev, shapes=None):
         count[name] += 1
         check(e == 0, f"{name} differs from its plain version: {what}")
 
-    def check_ntt(x, inverse, what):
-        got = K.ntt(x, inverse)
-        held("ntt", got, lambda s: K.ntt(x[s], inverse), x.shape[0],
+    def check_ntt(x, inverse, what, scale=None):
+        scale = o_inv if scale == "1/o" else scale
+        got = K.ntt(x, inverse, scale)
+        count["fused"] += scale is not None
+        held("ntt", got, lambda s: K.ntt(x[s], inverse, scale), x.shape[0],
              x.shape[1], f"{what}, [{x.shape[0]}, {x.shape[1]}], "
-             f"inverse {inverse}")
+             f"inverse {inverse}, scale {scale}")
 
     def check_lde(x, b, o, what):
         got = K.lde(x, b, o)
@@ -2298,64 +2320,101 @@ def phase_ntt(dev, shapes=None):
         x = rand(1, 1 << L)
         check_ntt(x, False, "a single column")
         check_ntt(x, True, "a single column")
+        check_ntt(x, True, "a single column", "1/o")
         check_lde(x, min(8, 1 << (NTT_CHECK_LOG - L)), gen, "a single column")
     for L, lb in ((0, 12), (1, 12), (1, 19), (2, 16), (5, 12)):
         check_lde(rand(3, 1 << L), 1 << lb, 7, "a large blowup")
     full = torch.full(NTT_FULL, F.P - 1, dtype=torch.int64, device=dev)
     check_ntt(full, False, "all p - 1")
     check_ntt(full, True, "all p - 1")
+    check_ntt(full, True, "all p - 1", "1/o")
     check_lde(full[:, :NTT_FULL[1] >> 3].contiguous(), 8, gen, "all p - 1")
     del full
     ntt_shapes = set(NTT_MAIN) if shapes is None else set(shapes["ntt"])
+    ntt_shapes |= {(d, n, True, o_inv) for n in (1 << 20, 1 << 23)
+                   for d in (1, 3)}
     lde_shapes = {(C, n, b, gen) for C, n, b in LDE_MAIN} \
         if shapes is None else set(shapes["lde"])
     lde_shapes.add(LDE_BIG + (gen,))
-    for C, n, inverse in sorted(ntt_shapes):
-        check_ntt(rand(C, n), inverse, "a path's shape")
+    for C, n, inverse, scale in sorted(ntt_shapes, key=str):
+        check_ntt(rand(C, n), inverse, "a path's shape", scale)
     for C, n, b, o in sorted(lde_shapes):
         check_lde(rand(C, n), b, o, "a path's shape")
     torch.cuda.synchronize()
     log(f"ntt, lde == plain: {count['ntt']} and {count['lde']} checks "
         f"({len(ntt_shapes)} and {len(lde_shapes)} of them the paths' "
-        f"shapes), bit for bit; {time.perf_counter() - t0:.1f} s")
+        f"shapes and the composition's fused inverse; {count['fused']} "
+        f"with the fused scale), bit for bit; "
+        f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     rows = []
     for name, timed, row in (("ntt", NTT_TIMED, NTT_ROW),
                              ("lde", LDE_TIMED, LDE_ROW)):
+        # the instantiations: ntt <false, 2>; lde <true, 3> for its first
+        # pass, <true, 2> for the later ones (csrc/ntt.cu MINB)
+        kern = {"ntt": ("ILb0ELi2E", "ILb0ELi2E"),
+                "lde": ("ILb1ELi3E", "ILb1ELi2E")}[name]
+        uses = [_ptxas_usage("ntt", "ntt_pass_kernel" + k) for k in kern]
+        use = uses[0]
+        log(f"{name}: ptxas {use}" + (f"; later passes {uses[1]}"
+                                       if kern[1] != kern[0] else ""))
         by_shape = []
-        for C, n, arg in timed:
+        for shape in timed:
+            C, n, arg = shape[:3]
             x = rand(C, n)
             if name == "ntt":
-                fn = lambda: K.ntt(x, arg)                      # noqa: E731
+                scale = o_inv if shape[3] == "1/o" else shape[3]
+                fn = lambda: K.ntt(x, arg, scale)               # noqa: E731
                 nbytes, muls = _ntt_cost(C, n, inverse=arg)
                 plan = K.ntt_plan(n)
+                out = torch.empty_like(x)
+                launches = K.ntt_passes(x, out, arg, scale)
+                floor = _ntt_traffic_ms(C, n, len(plan))
             else:
                 fn = lambda: K.lde(x, arg, gen)                 # noqa: E731
                 nbytes, muls = _ntt_cost(C, n, arg, lde=True)
-                plan = K.ntt_plan(n, arg)
+                plan = K.ntt_plan(n, arg, lde=True)
+                out = torch.empty((C, arg * n), dtype=torch.int64,
+                                  device=dev)
+                launches = K.lde_passes(x, out, arg, gen)
+                floor = _ntt_traffic_ms(C, n, len(plan), arg, lde=True)
             ms = cuda_ms(fn, 5)
+            pass_ms = [cuda_ms(fp, 5) for fp in launches]
             bnd, by = bound_ms(nbytes, muls)
             entry = dict(shape=[C, n], ms=ms, bound_ms=bnd, bound_by=by,
-                         passes=[(ps["log"], ps["log_R"], ps["log_G"],
-                                  ps["blocks"] * C) for ps in plan],
-                         **({"inverse": arg} if name == "ntt"
-                            else {"blowup": arg}))
-            if (C, n, arg) == row:
+                         traffic_floor_ms=floor,
+                         passes=[dict(log=ps["log"], rounds=ps["rounds"],
+                                      log_R=ps["log_R"], log_G=ps["log_G"],
+                                      blocks=ps["blocks"] * C,
+                                      smem_bytes=ps["smem_bytes"], ms=pm,
+                                      registers=uses[min(p, 1)].get(
+                                          "registers"))
+                                 for p, (ps, pm) in enumerate(
+                                     zip(plan, pass_ms))],
+                         **({"inverse": arg, "scale": shape[3]}
+                            if name == "ntt" else {"blowup": arg}))
+            if shape == row:
                 torch.cuda.empty_cache()
                 entry["plain_ms"] = _plain_timed(fn)[1]
             by_shape.append(entry)
-            log(f"{name} [{C}, {n}] {'inverse' if name == 'ntt' else 'blowup'}"
-                f" {arg}: {ms:.4f} ms, bound {bnd:.4f} ms ({by}; "
-                f"{100 * bnd / ms:.1f}%), passes (log2 n_p, log2 R, log2 G, "
-                f"blocks) {entry['passes']}"
+            log(f"{name} [{C}, {n}] "
+                + (f"inverse {arg} scale {shape[3]}" if name == "ntt"
+                   else f"blowup {arg}")
+                + f": {ms:.4f} ms, bound {bnd:.4f} ms ({by}; "
+                f"{100 * bnd / ms:.1f}%), two-pass traffic floor "
+                f"{floor:.4f} ms (a note); passes (log2 n_p, rounds, log2 R, "
+                f"log2 G, blocks, smem B, registers, ms) "
+                + "; ".join(f"({p['log']}, {p['rounds']}, {p['log_R']}, "
+                            f"{p['log_G']}, {p['blocks']}, "
+                            f"{p['smem_bytes']}, {p['registers']}, "
+                            f"{p['ms']:.4f})"
+                            for p in entry["passes"])
                 + (f", plain {entry['plain_ms']:.1f} ms"
                    if "plain_ms" in entry else ""))
-            del x
+            del x, out, launches
             torch.cuda.empty_cache()
         main = by_shape[0]
-        use = _ptxas_usage("ntt", f"ntt_pass_kernelILb{int(name == 'lde')}E")
-        log(f"{name}: ptxas {use}")
         rows.append(dict(
             name=name, route="cuda",
             source="certificate_stark_tpu_torch/csrc/ntt.cu",
