@@ -65,7 +65,6 @@
 #define PER0 (2 * WIDTH)           // periodic 188..235
 #define FRAME_ROWS (2 * WIDTH + 48)
 #define SHARED_SLOTS 58            // slots 0..57, summed in shared memory
-#define ONE_M 4287426845256712189ULL  // 2^64 mod p: Montgomery one
 #define ARK0 20                    // periodic columns of the half-round
 #define ARK1 34                    // constants
 
@@ -93,13 +92,9 @@ struct Sched {
 #define SM_SCHED (SM_B3 + 6)
 #define SM_SCR (SM_SCHED + (SCHED_LEN + 1) / 2)
 
-// a - b and a + b for canonical a, b: the difference d = a - b, or the sum
-// s = a + b less p, wraps below 0 exactly when it must take p back, and
-// then lies above 2^64 - p > 2^63, so its sign bit chooses
-__device__ __forceinline__ u64 msub(u64 a, u64 b) {
-    const u64 d = a - b;
-    return (long long)d < 0 ? d + F63_P : d;
-}
+// a + b for canonical a, b: the sum s = a + b less p wraps below 0
+// exactly when s is already below p, and then lies above 2^64 - p > 2^63,
+// so its sign bit chooses, as in msub (f63.cuh)
 __device__ __forceinline__ u64 madd(u64 a, u64 b) {
     const u64 s = a + b, t = s - F63_P;  // s < 2p < 2^64
     return (long long)t < 0 ? s : t;
@@ -481,9 +476,9 @@ __device__ __forceinline__ void item_mixed(const Tile& t, int m,
     x.acc = t.acc + off * TP;
     x.pt2 = m ? t.f + (NXT0 + 65) * TP : gen12;
     x.pt2_es = m ? TP : 1;
-    x.flag = f63_mmul(msub(ONE_M, t.p(7)), t.p(6));  // addition
+    x.flag = f63_mmul(msub(F63_ONE, t.p(7)), t.p(6));  // addition
     x.bit = t.c(off + 18);
-    x.nbit = msub(ONE_M, x.bit);
+    x.nbit = msub(F63_ONE, x.bit);
     x.blend = true;
     t.add(off + 18, f63_mmul(msub(x.bit, t.n(off + 18)), x.flag));
 }
@@ -494,7 +489,7 @@ __device__ __forceinline__ void item_full(const Tile& t, Ec& x) {
     x.cur = t.f;
     x.nxt = t.f + NXT0 * TP;
     x.acc = t.acc;
-    x.flag = f63_mmul(msub(ONE_M, t.p(6)), t.p(5));  // final
+    x.flag = f63_mmul(msub(F63_ONE, t.p(6)), t.p(5));  // final
     x.blend = false;
 }
 
@@ -502,13 +497,13 @@ __device__ __forceinline__ void item_full(const Tile& t, Ec& x) {
 // air_eval.c merkle_auth :314; models/merkle_update.py evaluate_merkle_auth)
 __device__ void item_merkle(const Tile& t) {
     const u64 tx_hash = t.p(1), hash_input = t.p(2);
-    const u64 not_input = msub(ONE_M, madd(t.p(4), hash_input));
+    const u64 not_input = msub(F63_ONE, madd(t.p(4), hash_input));
     const u64 copy_flag = f63_mmul(tx_hash, not_input);
     const u64 init_flag = f63_mmul(tx_hash, hash_input);
 #pragma unroll 1
     for (int m = 0; m < 2; m++) {
         const int base = 29 * m;  // result slots and registers
-        const u64 bit = t.n(base + 14), nbit = msub(ONE_M, bit);
+        const u64 bit = t.n(base + 14), nbit = msub(F63_ONE, bit);
         t.add(base + 14, f63_mmul(msub(f63_msqr(bit), bit), tx_hash));
 #pragma unroll 1
         for (int half = 0; half < 2; half++) {
@@ -541,9 +536,9 @@ __device__ void item_merkle(const Tile& t) {
 // 65..88, 89 and 91 under the four internal flags (periodic 13..16)
 __device__ void item_hash(const Tile& t) {
     const u64 schnorr_mask = t.p(5), scalar_mult = t.p(6), doubling = t.p(7);
-    const u64 addition = f63_mmul(msub(ONE_M, doubling), scalar_mult);
-    const u64 final_flag = f63_mmul(msub(ONE_M, scalar_mult), schnorr_mask);
-    const u64 copy_hash = f63_mmul(msub(ONE_M, t.p(12)), schnorr_mask);
+    const u64 addition = f63_mmul(msub(F63_ONE, doubling), scalar_mult);
+    const u64 final_flag = f63_mmul(msub(F63_ONE, scalar_mult), schnorr_mask);
+    const u64 copy_hash = f63_mmul(msub(F63_ONE, t.p(12)), schnorr_mask);
     const u64 hbit = t.n(37);
 #pragma unroll 1
     for (int k = 0; k < 4; k++) {
@@ -553,7 +548,7 @@ __device__ void item_hash(const Tile& t) {
         const u64 cp = msub(t.c(vp), t.n(vp));
         t.add(vp, madd(
             f63_mmul(acc, f63_mmul(df, doubling)),
-            f63_mmul(cp, f63_mmul(msub(ONE_M, df), doubling))));
+            f63_mmul(cp, f63_mmul(msub(F63_ONE, df), doubling))));
         const u64 limb = t.c(38 + k);
         t.add(38 + k, madd(f63_mmul(msub(limb, t.n(38 + k)), addition),
                               f63_mmul(msub(limb, t.c(42 + k)), final_flag)));
@@ -589,7 +584,7 @@ __device__ void item_range(const Tile& t) {
 __device__ void item_own(const Tile& t, u64* o, long long S, bool live) {
     const u64 setup = t.p(0), finish = t.p(3), range_step = t.p(17);
     const u64 range_finish = t.p(18), value_copy = t.p(19);
-    const u64 not_finish = msub(ONE_M, finish);
+    const u64 not_finish = msub(F63_ONE, finish);
 #define PUT(s, v)                  \
     do {                           \
         const u64 v_ = (v);        \
@@ -609,7 +604,7 @@ __device__ void item_own(const Tile& t, u64* o, long long S, bool live) {
     PUT(89, f63_mmul(msub(t.c(42), t.c(57)), setup));
     const u64 bal = msub(msub(t.c(12), t.c(27)), msub(t.c(56), t.c(41)));
     PUT(90, f63_mmul(bal, setup));
-    PUT(91, f63_mmul(msub(t.c(28), madd(t.c(13), ONE_M)), setup));
+    PUT(91, f63_mmul(msub(t.c(28), madd(t.c(13), F63_ONE)), setup));
     {  // Merkle's finish rows, with sigma's range bit (92), accumulator (93)
         const u64 bit = t.n(92);
         const u64 acc = msub(t.n(93), madd(mdbl(t.c(93)), bit));

@@ -38,6 +38,17 @@ __device__ __forceinline__ u64 f63_add(u64 a, u64 b) {
     return f63_sub_p(a + b);  // a, b < p < 2^63: no wrap
 }
 
+// 2^64 mod p: one in Montgomery form
+#define F63_ONE 4287426845256712189ULL
+
+// a - b for canonical a, b: the difference wraps below 0 exactly when it
+// must take p back, and then lies above 2^64 - p > 2^63, so its sign bit
+// chooses.
+__device__ __forceinline__ u64 msub(u64 a, u64 b) {
+    const u64 d = a - b;
+    return (long long)d < 0 ? d + F63_P : d;
+}
+
 // t = (t3 t2 t1 t0) < p * 2^64  ->  t * 2^-64 mod p, canonical.
 __device__ __forceinline__ u64 f63_redc(u32 t0, u32 t1, u32 t2, u32 t3) {
     u32 z, m = 0u - t0;
@@ -147,4 +158,76 @@ __device__ __forceinline__ u64 f63_inv_sbox(u64 x) {
 #pragma unroll
     for (int k = 0; k < 6; k++) y = f63_msqr(y);
     return f63_mmul(f63_msqr(f63_mmul(y, x21)), x);
+}
+
+// ---- unreduced sums of products (compose.cu, deep.cu) --------------------
+// A sum of products of canonical values is kept in 128 bits and reduced
+// once: in Montgomery form the REDC of a sum is the sum of the REDCs mod
+// p. tests/test_torch_compose_words.py replays these helpers in Python ints
+// and checks the bounds below.
+#define FOLD_EVERY 7          // products between two folds of a sum
+#define FOLD_TOP 0x83000000u  // the high word after a fold: (2p) >> 96
+#define MAX_TERMS (1 << 26)   // products in one sum, for o 2^32's room
+
+// An unreduced sum of products of canonical values, in two parts:
+//   e = eh 2^64 + el   sum of a0 b0 + a1 b1 2^64, each term <= (p - 1)^2
+//   o = oh 2^64 + ol   sum of a0 b1 + a1 b0, each term < 2^64
+// of a = a1 2^32 + a0, b = b1 2^32 + b0; the sum is e + o 2^32. Each
+// 64-bit half is one operand of a 32 x 32 + 64-bit multiply-add, so it
+// stays in one aligned register pair (a sum in four words that adds the
+// cross products at word 1 makes the compiler move words between pairs
+// for every product).
+struct Wide {
+    u64 el, eh, ol;
+    u32 oh;
+};
+
+__device__ __forceinline__ void wide_zero(Wide& w) {
+    w.el = w.eh = w.ol = 0;
+    w.oh = 0;
+}
+
+// w += a * b: two multiply-adds into e (a carry between its halves), two
+// into ol (each carry into oh); the caller keeps e below 2^128 by folds
+// and o below 2^96 by the count of terms.
+__device__ __forceinline__ void wide_mac(Wide& w, u64 a, u64 b) {
+    asm("{\n\t.reg .u32 e0, e1, e2, e3, o0, o1;\n\t"
+        "mov.b64         {e0, e1}, %0;\n\t"
+        "mov.b64         {e2, e3}, %1;\n\t"
+        "mov.b64         {o0, o1}, %2;\n\t"
+        "mad.lo.cc.u32   e0, %4, %6, e0;\n\t"
+        "madc.hi.cc.u32  e1, %4, %6, e1;\n\t"
+        "madc.lo.cc.u32  e2, %5, %7, e2;\n\t"
+        "madc.hi.u32     e3, %5, %7, e3;\n\t"
+        "mad.lo.cc.u32   o0, %4, %7, o0;\n\t"
+        "madc.hi.cc.u32  o1, %4, %7, o1;\n\t"
+        "addc.u32        %3, %3, 0;\n\t"
+        "mad.lo.cc.u32   o0, %5, %6, o0;\n\t"
+        "madc.hi.cc.u32  o1, %5, %6, o1;\n\t"
+        "addc.u32        %3, %3, 0;\n\t"
+        "mov.b64         %0, {e0, e1};\n\t"
+        "mov.b64         %1, {e2, e3};\n\t"
+        "mov.b64         %2, {o0, o1};\n\t}"
+        : "+l"(w.el), "+l"(w.eh), "+l"(w.ol), "+r"(w.oh)
+        : "r"(lo32(a)), "r"(hi32(a)), "r"(lo32(b)), "r"(hi32(b)));
+}
+
+// eh less 2p where e's high word exceeds FOLD_TOP (then e >= (FOLD_TOP +
+// 1) 2^96 > 2p 2^64): the same value mod p, with a high word of at most
+// FOLD_TOP either way.
+__device__ __forceinline__ void wide_fold(Wide& w) {
+    if (hi32(w.eh) > FOLD_TOP) w.eh -= 2 * F63_P;
+}
+
+// The sum's value e + o 2^32 (below 2^128: e is below (FOLD_TOP + 1)
+// 2^96 + FOLD_EVERY (p - 1)^2 and o 2^32 below 2^96 times the terms),
+// reduced: sum * 2^-64 mod p, canonical.
+__device__ __forceinline__ u64 wide_redc(const Wide& w) {
+    u32 c[4] = {lo32(w.el), hi32(w.el), lo32(w.eh), hi32(w.eh)};
+    asm("add.cc.u32      %0, %0, %3;\n\t"
+        "addc.cc.u32     %1, %1, %4;\n\t"
+        "addc.u32        %2, %2, %5;"
+        : "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(lo32(w.ol)), "r"(hi32(w.ol)), "r"(w.oh));
+    return f63_redc_wide(c);
 }

@@ -56,14 +56,10 @@
 #define GROUP 16            // threads of one Rescue state
 #define THREADS 128         // 4 warps, one an SM sub-partition: s.G, h.P,
                             // Merkle + hash/range, Merkle + copies
-#define ONE_M 4287426845256712189ULL  // 2^64 mod p: Montgomery one
 #define FULL 0xffffffffu
 
-__device__ __forceinline__ u64 msub(u64 a, u64 b) {
-    return a >= b ? a - b : a + (F63_P - b);
-}
 __device__ __forceinline__ u64 mdbl(u64 a) { return f63_add(a, a); }
-__device__ __forceinline__ u64 bit_m(u64 b) { return b ? ONE_M : 0; }
+__device__ __forceinline__ u64 bit_m(u64 b) { return b ? F63_ONE : 0; }
 
 // ---- fp6 arithmetic spread over a warp (ops/ecc.py f6_mul) ----------------
 // fp2 = fp[u]/(u^2 - 2u - 2), fp6 = fp2[v]/(v^3 + v + 1); an fp6 value is
@@ -347,7 +343,7 @@ __device__ __forceinline__ void f2mul(const u64* a, const u64* b, u64* c) {
 // x^(p - 2), the base-field inverse (0 maps to 0).
 __device__ u64 f63_inv(u64 x) {
     const u64 e = F63_P - 2;
-    u64 r = ONE_M;
+    u64 r = F63_ONE;
 #pragma unroll 1
     for (int i = 62; i >= 0; i--) {
         r = f63_msqr(r);
@@ -622,7 +618,7 @@ __device__ void ec_lane(Shared& sh, int pt, int lane,
                                                                      : 0;
     if (lane < 6) {
         e.v[X][k] = 0;
-        e.v[Y][k] = k == 0 ? ONE_M : 0;
+        e.v[Y][k] = k == 0 ? F63_ONE : 0;
         e.v[Z][k] = 0;
         e.v[QX][k] = __ldg(q12 + k);
         e.v[QY][k] = __ldg(q12 + 6 + k);
@@ -659,7 +655,7 @@ __device__ void ec_lane(Shared& sh, int pt, int lane,
             if (pt == 0) {
                 ec_add(e, lane, b3form);
                 ec_affine_x(e, lane);
-                breg = ONE_M;
+                breg = F63_ONE;
             }
         }
         if (lane < 6) {

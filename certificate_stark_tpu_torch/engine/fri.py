@@ -7,15 +7,17 @@ scalar xi an extension element. One radix-2 fold:
 
     E'(x^2) = (E(x) + E(-x))/2 + xi * (E(x) - E(-x)) / (2x)
 
-On a domain o*<w> the -x partner of index j is j + n/2, and 1/x comes from
-an inverse-powers table. A fold by 4 is two radix-2 folds, with xi and
-xi^2. Layer leaves group the `fold` positions that fold together,
-element-major: leaf j holds the d coordinates of the value at j, then of
-the value at j + n/fold, j + 2n/fold, ...
+On a domain o*<w> the -x partner of index j is j + n/2. A fold by 4 is two
+radix-2 folds, with xi and xi^2: `fold` is one launch of the fri_fold
+kernel (ops/kernels.py), whose plain version takes its steps from
+`inv_xs_table` (1/x from an inverse-powers table) and `fold_halves`. Layer
+leaves group the `fold` positions that fold together, element-major: leaf
+j holds the d coordinates of the value at j, then of the value at j +
+n/fold, j + 2n/fold, ...
 """
 from __future__ import annotations
 
-from ..ops import extfield as XF, field as F
+from ..ops import extfield as XF, field as F, kernels as K
 
 
 def inv_xs_table(offset: int, gen: int, count: int, device):
@@ -36,22 +38,12 @@ def fold_halves(e0, e1, inv_x, xi):
                                d))
 
 
-def fold2(evals, xi, offset: int, gen: int):
-    """One radix-2 fold of [d, n] evaluations with the extension scalar xi
-    [d] (Montgomery) -> [d, n/2] over the domain o^2*<w^2>."""
-    half = evals.shape[1] // 2
-    return fold_halves(evals[:, :half], evals[:, half:],
-                       inv_xs_table(offset, gen, half, evals.device), xi)
-
-
 def fold(evals, xi, offset: int, gen: int, folding: int):
-    """Fold [d, n] by 2, or by 4 as two radix-2 folds with xi and xi^2."""
-    d = evals.shape[0]
-    out = fold2(evals, xi, offset, gen)
-    if folding == 4:
-        xi2 = XF.ext_mul(xi[:, None], xi[:, None], d)[:, 0]
-        out = fold2(out, xi2, offset * offset % F.P, gen * gen % F.P)
-    return out
+    """Fold [d, n] by 2, or by 4 as two radix-2 folds with xi and xi^2:
+    one fri_fold launch on the values at j + t n/folding."""
+    d, n = evals.shape
+    return K.fri_fold(evals.reshape(d, folding, n // folding)
+                      .transpose(0, 1), xi, offset, gen)
 
 
 def leaf_rows(evals, folding: int):

@@ -236,25 +236,25 @@ class Prover:
         return lde[:, j0:j1], nxt
 
     def ood_points(self, z):
-        """z, z*g and z^k of the extension point z [d] -> [d, 3]."""
-        zg = F.mul(z, F.const(self.g_trace, z.device))
-        zk = z[:, None]
+        """z, z*g and z^k of the extension point z [d] -> [d, 3], from z's
+        value on the host (a few extension products in Python ints)."""
+        zs = [int(v) for v in F.to_ints(z)]
+        zk = zs
         for _ in range(self.k.bit_length() - 1):
-            zk = XF.ext_mul(zk, zk, self.d)
-        return torch.stack([z, zg, zk[:, 0]], dim=1)
+            zk = XF.host_ext_mul(zk, zk, self.d)
+        return F.from_ints([[v, v * self.g_trace % F.P, vk]
+                            for v, vk in zip(zs, zk)], z.device)
 
     def phase_ood(self, trace_coeffs, h_coeffs, z):
         """Trace polynomials at z and z*g, composition columns at z^k
-        -> ood_z [d, w], ood_zg [d, w], ood_h [d, k]."""
-        tbl = self._ood_table(self.ood_points(z))
-        ood = F.mul_sum(trace_coeffs, tbl[:, :2, None, :], dim=-1)
-        ood_h = XF.ext_mul_sum(h_coeffs, tbl[:, 2, None, :], self.d, dim=-1)
-        return self._ood_sum(ood[:, 0], ood[:, 1], ood_h)
+        -> ood_z [d, w], ood_zg [d, w], ood_h [d, k]: the ood kernel."""
+        return self._ood_sum(*K.ood(trace_coeffs, h_coeffs,
+                                    self.ood_points(z), self._ood_start()))
 
-    def _ood_table(self, pts):
-        """The powers of the OOD points pts [d, 3] that meet the
-        coefficients this prover holds -> [d, 3, n]: 0 .. n-1."""
-        return XF.ext_powers_dyn(pts, self.n, self.d)
+    def _ood_start(self):
+        """The power of the OOD points that meets this prover's first
+        coefficient: 0, it holds them all."""
+        return 0
 
     def _ood_sum(self, *parts):
         """The OOD values from this prover's sums over its coefficients:
@@ -265,38 +265,15 @@ class Prover:
                    z):
         """DEEP composition over the LDE domain, segment by segment ->
         [d, bn]: sum_j g_j (f_j(x) - f_j(p)) / (x - p) over the trace
-        columns at p = z and z*g and the composition columns at z^k."""
-        d = self.d
+        columns at p = z and z*g and the composition columns at z^k. One
+        deep launch a segment, each writing its slice of the output."""
         pts = self.ood_points(z)
-        # sum_j g_j f_j(p) for the three points, [d, 3]
-        c = torch.stack([XF.ext_mul_sum(g_z, ood_z, d, dim=1),
-                         XF.ext_mul_sum(g_zg, ood_zg, d, dim=1),
-                         XF.ext_mul_sum(g_h, ood_h, d, dim=1)], dim=1)
-        return torch.cat([self._deep(lde, h_lde, j0, j1, pts, c, g_z, g_zg,
-                                     g_h)
-                          for j0, j1 in self._segments()], dim=1)
-
-    def _deep(self, lde, h_lde, j0, j1, pts, c, g_z, g_zg, g_h):
-        """The DEEP quotients' sum on the domain points [j0, j1)."""
-        d, S = self.d, j1 - j0
-        # x - p for the three points, [d, 3, S], and their inverses from
-        # one inversion of their product
-        den = torch.cat([F.sub(self.xs[None, j0:j1], pts[0][:, None])[None],
-                         F.neg(pts[1:])[:, :, None].expand(d - 1, 3, S)])
-        xz, xzg, xzk = den[:, 0], den[:, 1], den[:, 2]
-        others = XF.ext_mul(torch.stack([xzg, xz, xz], dim=1),
-                            torch.stack([xzk, xzk, xzg], dim=1), d)
-        inv_all = XF.ext_inv_vec(XF.ext_mul(others[:, 2], xzk, d), d)
-        inv_den = XF.ext_mul(others, inv_all[:, None], d)
-        # numerators: sum_j g_j f_j(x) - sum_j g_j f_j(p)
-        cur = lde[None, :, j0:j1]
-        num = torch.stack([
-            F.mul_sum(cur, g_z[:, :, None], dim=1),
-            F.mul_sum(cur, g_zg[:, :, None], dim=1),
-            XF.ext_mul_sum(h_lde[..., j0:j1], g_h[:, :, None], d, dim=1)],
-            dim=1)
-        q = XF.ext_mul(F.sub(num, c[:, :, None]), inv_den, d)   # [d, 3, S]
-        return F.add(F.add(q[:, 0], q[:, 1]), q[:, 2])
+        out = torch.empty((self.d, self.j_hi - self.j_lo), dtype=torch.int64,
+                          device=lde.device)
+        for j0, j1 in self._segments():
+            K.deep(lde[:, j0:j1], h_lde[..., j0:j1], self.xs[j0:j1], pts,
+                   ood_z, ood_zg, ood_h, g_z, g_zg, g_h, out=out[:, j0:j1])
+        return out
 
     # ------------------------------------------------------------------
     def _draw(self, coin, count):

@@ -8,7 +8,7 @@ Two kernels replace the Pallas kernels of the JAX package
   rescue_permutation  <- pallas_rescue_permutation (:142-160),
                          csrc/rescue_perm.cu
 
-and fourteen replace XLA code of the JAX package:
+and seventeen replace XLA code of the JAX package:
 
   blake3_leaves, blake3_merge  <- engine/hasher.py Blake3Hasher
                                   hash_columns / merge_pairs, csrc/blake3.cu
@@ -35,6 +35,10 @@ and fourteen replace XLA code of the JAX package:
                                   Pallas kernel pallas_local_ntt was
                                   deleted: csrc/ntt.cu, one launch a pass
                                   of ntt_plan
+  ood, deep, fri_fold          <- engine/prover.py phase_ood (:748),
+                                  _deep_pointwise (:802) and fold_kernel
+                                  (:1088) over engine/fri.py fold2_ext
+                                  (:105): csrc/deep.cu
 
 The CUDA sources are compiled at first use with nvcc for sm_90a, one shared
 library with a plain C interface per source (all compiles started together),
@@ -96,7 +100,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = {"f63_mul": "f63_mul.cu", "rescue_perm": "rescue_perm.cu",
            "blake3": "blake3.cu", "sha256": "sha256.cu", "sha3": "sha3.cu",
            "tx_trace": "tx_trace.cu", "air_eval": "air_eval.cu",
-           "compose": "compose.cu", "ntt": "ntt.cu"}
+           "compose": "compose.cu", "ntt": "ntt.cu", "deep": "deep.cu"}
 _HEADERS = ("f63.cuh", "tree.cuh")
 
 _LIBS: dict = {}
@@ -626,6 +630,18 @@ _ENTRY_POINTS = {
             + [_vp] * 3 + [_int] + [_vp] * 2 + [_int, _ll, _int, _vp],
             "lde_launch": [_vp, _vp, _ll, _int, _int, _IP, _int, _int, _IP]
             + [_vp] * 4 + [_int] + [_vp] * 2 + [_int, _vp]},
+    # ood: coef, its row stride, w; h and its coordinate and column
+    # strides, k; pts, s, m, d, part, out, stream. deep: lde, its row
+    # stride; h and its two strides; xs, pts, ood_z, ood_zg, ood_h, g_z,
+    # g_zg, g_h, w, k, d, S, out, its row stride, stream. fri_fold: src,
+    # its value and coordinate strides, L, j0, lo, hi, h, step_inv, inv2,
+    # xi, d, fold, out, stream
+    "deep": {"ood_launch": [_vp, _ll, _int, _vp, _ll, _ll, _int, _vp, _ll,
+                            _ll, _int, _vp, _vp, _vp],
+             "deep_launch": [_vp, _ll, _vp, _ll, _ll] + [_vp] * 8
+             + [_int] * 3 + [_ll, _vp, _ll, _vp],
+             "fri_fold_launch": [_vp, _ll, _ll, _ll, _ll, _vp, _vp, _int,
+                                 _ll, _ll, _vp, _int, _int, _vp, _vp]},
 }
 
 
@@ -1347,10 +1363,263 @@ lde.launches = 0
 lde.shapes = set()
 
 
+# ---------------------------------------------------------------------------
+# the proof's tail: OOD values, the DEEP composition, the FRI fold
+# ---------------------------------------------------------------------------
+OOD_STRIP = 1 << 9      # csrc/deep.cu: a block's coefficient indices
+
+
+def _launch_device(t: torch.Tensor, name: str):
+    """The CUDA device a kernel of this module launches on for t; raises on
+    any other."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device
+
+
+def _ext_pow_plain(b: torch.Tensor, e: int, d: int) -> torch.Tensor:
+    """b^e of extension values b [d, *S], by square-and-multiply."""
+    from . import extfield as XF, field as F
+    r = XF.base_to_ext(F.const(1, b.device).expand(b.shape[1:]), d)
+    x = b
+    while e:
+        if e & 1:
+            r = XF.ext_mul(r, x, d)
+        e >>= 1
+        if e:
+            x = XF.ext_mul(x, x, d)
+    return r
+
+
+def ood_plain(coef, h_coeffs, pts, s: int = 0):
+    """Plain PyTorch ood: the powers table of the points and the
+    multiply-sums over it."""
+    from . import extfield as XF, field as F
+    d, m = pts.shape[0], coef.shape[-1]
+    tbl = XF.ext_powers_dyn(pts, m, d)                     # [d, 3, m]
+    if s:
+        tbl = XF.ext_mul(tbl, _ext_pow_plain(pts, s, d)[..., None], d)
+    ood = F.mul_sum(coef, tbl[:, :2, None, :], dim=-1)     # [d, 2, w]
+    ood_h = XF.ext_mul_sum(h_coeffs, tbl[:, 2, None, :], d, dim=-1)
+    return ood[:, 0], ood[:, 1], ood_h
+
+
+def ood(coef: torch.Tensor, h_coeffs: torch.Tensor, pts: torch.Tensor,
+        s: int = 0):
+    """The out-of-domain values from coefficients whose index i carries the
+    power s + i: the trace columns coef [w, m] (points contiguous) at z and
+    z g, and the composition columns h_coeffs [d, k, m] (points contiguous)
+    at z^k, with pts [d, 3] = (z, z g, z^k) -> (ood_z [d, w], ood_zg
+    [d, w], ood_h [d, k]): sum_i c_i p^(s + i). The sharded prover's rank
+    passes its block's first exponent s. Two launches a call (csrc/deep.cu
+    ood_kernel over strips of OOD_STRIP indices, then the total of the
+    strips' partial sums), counted as one. The plain version for a CPU
+    tensor or inside plain_versions(). `ood.shapes` keeps every (d, w, k,
+    m, s) launched in this process."""
+    if use_plain(coef):
+        return ood_plain(coef, h_coeffs, pts, s)
+    dev = _launch_device(coef, "ood")
+    d, k, m = h_coeffs.shape
+    w = coef.shape[0]
+    if not 1 <= d <= 3:
+        raise ValueError(f"ood: extension degree {d} not in 1..3")
+    c_ld = _row_stride(coef, "ood coef", dev, w, m)
+    if h_coeffs.device != dev or h_coeffs.dtype != torch.int64:
+        raise ValueError("ood: h_coeffs must be int64 on the device of coef")
+    if m > 1 and h_coeffs.stride(2) != 1:
+        raise ValueError("ood: h_coeffs' points are not contiguous")
+    _check(pts, "ood pts", dev, (d, 3))
+    V = d * (2 * w + k)
+    out = torch.empty((d, 2 * w + k), dtype=torch.int64, device=dev)
+    part = torch.empty((-(-m // OOD_STRIP), V), dtype=torch.int64,
+                       device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(_lib("deep").ood_launch(
+        coef.data_ptr(), c_ld, w, h_coeffs.data_ptr(), h_coeffs.stride(0),
+        h_coeffs.stride(1), k, pts.data_ptr(), s, m, d, part.data_ptr(),
+        out.data_ptr(), stream), "ood")
+    ood.launches += 1
+    ood.shapes.add((d, w, k, m, s))
+    return out[:, :w], out[:, w:2 * w], out[:, 2 * w:]
+
+
+ood.launches = 0
+ood.shapes = set()
+
+
+def deep_plain(lde, h_lde, xs, pts, ood_z, ood_zg, ood_h, g_z, g_zg, g_h):
+    """Plain PyTorch deep: the three denominators' inverses from one
+    batch inversion of their product (F.batch_inv: 0 maps to 0, so a
+    point where one is 0 is 0), the numerators by multiply-sums."""
+    from . import extfield as XF, field as F
+    d, S = pts.shape[0], xs.shape[-1]
+    # sum_j g_j f_j(p) for the three points, [d, 3]
+    c = torch.stack([XF.ext_mul_sum(g_z, ood_z, d, dim=1),
+                     XF.ext_mul_sum(g_zg, ood_zg, d, dim=1),
+                     XF.ext_mul_sum(g_h, ood_h, d, dim=1)], dim=1)
+    # x - p for the three points, [d, 3, S], and their inverses from one
+    # inversion of their product
+    den = torch.cat([F.sub(xs[None], pts[0][:, None])[None],
+                     F.neg(pts[1:])[:, :, None].expand(d - 1, 3, S)])
+    xz, xzg, xzk = den[:, 0], den[:, 1], den[:, 2]
+    others = XF.ext_mul(torch.stack([xzg, xz, xz], dim=1),
+                        torch.stack([xzk, xzk, xzg], dim=1), d)
+    inv_all = XF.ext_inv_vec(XF.ext_mul(others[:, 2], xzk, d), d)
+    inv_den = XF.ext_mul(others, inv_all[:, None], d)
+    # numerators: sum_j g_j f_j(x) - sum_j g_j f_j(p)
+    cur = lde[None]
+    num = torch.stack([
+        F.mul_sum(cur, g_z[:, :, None], dim=1),
+        F.mul_sum(cur, g_zg[:, :, None], dim=1),
+        XF.ext_mul_sum(h_lde, g_h[:, :, None], d, dim=1)], dim=1)
+    q = XF.ext_mul(F.sub(num, c[:, :, None]), inv_den, d)   # [d, 3, S]
+    return F.add(F.add(q[:, 0], q[:, 1]), q[:, 2])
+
+
+def deep(lde: torch.Tensor, h_lde: torch.Tensor, xs: torch.Tensor,
+         pts: torch.Tensor, ood_z: torch.Tensor, ood_zg: torch.Tensor,
+         ood_h: torch.Tensor, g_z: torch.Tensor, g_zg: torch.Tensor,
+         g_h: torch.Tensor, out=None) -> torch.Tensor:
+    """The DEEP composition on S domain points -> [d, S] (into `out`, a
+    [d, S] view whose points are contiguous, where given): sum_j g_z,j
+    (f_j(x) - f_j(z)) / (x - z) + sum_j g_zg,j (f_j(x) - f_j(z g)) /
+    (x - z g) + sum_j g_h,j (H_j(x) - H_j(z^k)) / (x - z^k), with the trace
+    segment lde [w, S] and the composition segment h_lde [d, k, S] (views
+    whose points are contiguous, read through their strides), the points
+    xs [S], pts [d, 3] = (z, z g, z^k), the OOD values ood_z, ood_zg
+    [d, w] and ood_h [d, k], and the coefficients g_z, g_zg [d, w] and
+    g_h [d, k]. A point where a denominator is 0 is 0. The plain version
+    for a CPU tensor or inside plain_versions(). `deep.shapes` keeps every
+    (d, w, k, S) launched in this process."""
+    if use_plain(lde):
+        q = deep_plain(lde, h_lde, xs, pts, ood_z, ood_zg, ood_h, g_z,
+                       g_zg, g_h)
+        return q if out is None else out.copy_(q)
+    dev = _launch_device(lde, "deep")
+    w, S = lde.shape
+    d, k = g_h.shape
+    if not 1 <= d <= 3:
+        raise ValueError(f"deep: extension degree {d} not in 1..3")
+    lde_ld = _row_stride(lde, "deep lde", dev, w, S)
+    if h_lde.device != dev or h_lde.dtype != torch.int64 or \
+            tuple(h_lde.shape) != (d, k, S):
+        raise ValueError(f"deep: h_lde {tuple(h_lde.shape)} {h_lde.dtype} "
+                         f"on {h_lde.device}, expected ({d}, {k}, {S}) "
+                         f"int64 on {dev}")
+    if S > 1 and (h_lde.stride(2) != 1 or xs.stride(0) != 1):
+        raise ValueError("deep: h_lde's or xs's points are not contiguous")
+    if xs.device != dev or tuple(xs.shape) != (S,):
+        raise ValueError(f"deep: xs {tuple(xs.shape)} on {xs.device}")
+    # the small inputs may be views (ood's outputs are column slices)
+    small = tuple(t.contiguous() for t in (pts, ood_z, ood_zg, ood_h, g_z,
+                                           g_zg, g_h))
+    for t, what, shape in zip(small, ("pts", "ood_z", "ood_zg", "ood_h",
+                                      "g_z", "g_zg", "g_h"),
+                              ((d, 3), (d, w), (d, w), (d, k), (d, w),
+                               (d, w), (d, k))):
+        _check(t, f"deep {what}", dev, shape)
+    if out is None:
+        out = torch.empty((d, S), dtype=torch.int64, device=dev)
+    out_ld = _row_stride(out, "deep out", dev, d, S)
+    if S == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(_lib("deep").deep_launch(
+        lde.data_ptr(), lde_ld, h_lde.data_ptr(), h_lde.stride(0),
+        h_lde.stride(1), xs.data_ptr(), *[t.data_ptr() for t in small],
+        w, k, d, S, out.data_ptr(), out_ld, stream), "deep")
+    deep.launches += 1
+    deep.shapes.add((d, w, k, S))
+    return out
+
+
+deep.launches = 0
+deep.shapes = set()
+
+
+@functools.lru_cache(maxsize=64)
+def fold_tables(offset: int, gen: int, size: int, device: str):
+    """1/x of the FRI layer's points x = offset gen^e (e < size), split in
+    two, and gen^-1: (lo, hi, h, gen^-1) with (offset gen^e)^-1 =
+    lo[e mod 2^h] hi[e >> h], Montgomery (gen^-1 a standard-form int);
+    cached."""
+    w_inv = pow(gen, P - 2, P)
+    return _split_table(w_inv, _log2(size, "fri_fold size"), device,
+                        pow(offset, P - 2, P)) + (w_inv,)
+
+
+def fri_fold_plain(groups, xi, offset: int, gen: int, j0: int = 0,
+                   step=None):
+    """Plain PyTorch fri_fold: radix-2 folds of the values t and t + h of
+    the groups (engine/fri.py fold_halves) with 1/x from
+    engine/fri.py inv_xs_table at the positions j0 + j + t step."""
+    from ..engine import fri as FRI
+    from . import extfield as XF
+    fold, d, L = groups.shape
+    step = L if step is None else step
+    g = groups.transpose(0, 1)                             # [d, fold, L]
+    o, gw = offset % P, gen % P
+    while g.shape[1] > 1:
+        h = g.shape[1] // 2
+        inv_x = torch.stack([
+            FRI.inv_xs_table(o * pow(gw, j0 + t * step, P) % P, gw, L,
+                             groups.device) for t in range(h)])  # [h, L]
+        g = FRI.fold_halves(g[:, :h], g[:, h:], inv_x, xi)
+        xi = XF.ext_mul(xi[:, None], xi[:, None], d)[:, 0]
+        o, gw = o * o % P, gw * gw % P
+    return g[:, 0]
+
+
+def fri_fold(groups: torch.Tensor, xi: torch.Tensor, offset: int, gen: int,
+             j0: int = 0, step=None) -> torch.Tensor:
+    """One FRI layer's fold of the values groups [fold, d, L] (fold 2 or
+    4; a view whose points are contiguous): value t of point j sits at the
+    layer's position j0 + j + t step (step = L by default, the whole
+    layer), on the domain offset * <gen> of fold step points. Radix-2
+    folds of the values t and t + fold/2 with the extension scalar xi [d],
+    then (fold 4) of the two results with xi^2 -> [d, L]. The plain
+    version for a CPU tensor or inside plain_versions(). `fri_fold.shapes`
+    keeps every (d, fold, L, layer size, j0) launched in this process."""
+    if use_plain(groups):
+        return fri_fold_plain(groups, xi, offset, gen, j0, step)
+    dev = _launch_device(groups, "fri_fold")
+    if groups.dim() != 3 or groups.dtype != torch.int64:
+        raise ValueError(f"fri_fold: groups {tuple(groups.shape)} "
+                         f"{groups.dtype}, expected int64 (fold, d, L)")
+    fold, d, L = groups.shape
+    step = L if step is None else step
+    if fold not in (2, 4) or not 1 <= d <= 3:
+        raise ValueError(f"fri_fold: fold {fold}, degree {d}")
+    if L > 1 and groups.stride(2) != 1:
+        raise ValueError("fri_fold: the points are not contiguous")
+    if j0 < 0 or j0 + L > step:
+        raise ValueError(f"fri_fold: points [{j0}, {j0 + L}) outside the "
+                         f"step {step}")
+    _check(xi, "fri_fold xi", dev, (d,))
+    lo, hi, h, w_inv = fold_tables(offset % P, gen % P, fold * step,
+                                   str(dev))
+    out = torch.empty((d, L), dtype=torch.int64, device=dev)
+    if L == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(_lib("deep").fri_fold_launch(
+        groups.data_ptr(), groups.stride(0), groups.stride(1), L, j0,
+        lo.data_ptr(), hi.data_ptr(), h,
+        _mont(pow(w_inv, step, P)), _mont((P + 1) // 2),
+        xi.data_ptr(), d, fold, out.data_ptr(), stream), "fri_fold")
+    fri_fold.launches += 1
+    fri_fold.shapes.add((d, fold, L, fold * step, j0))
+    return out
+
+
+fri_fold.launches = 0
+fri_fold.shapes = set()
+
+
 WRAPPERS = (f63_mul, rescue_permutation, blake3_leaves, blake3_merge,
             blake3_tree, sha256_leaves, sha256_merge, sha256_tree,
             sha3_leaves, sha3_merge, sha3_tree, transaction_trace,
-            transaction_eval, compose, ntt, lde)
+            transaction_eval, compose, ntt, lde, ood, deep, fri_fold)
 
 
 def reset_launches():

@@ -22,8 +22,8 @@ of D holding the points [r*m/D, (r+1)*m/D) of an m-point axis:
     and one all-to-all with uneven splits from blocks of bn/D coefficients
     to the blocks of kn/D the column split H_c(x) needs; then its LDE as
     the trace's;
-  * OOD: each rank's dot with the powers from z^(r n/D), the partials
-    gathered and added in the field;
+  * OOD: each rank's ood launch on its coefficient block, from the power
+    z^(r n/D), the partials gathered and added in the field;
   * DEEP: pointwise on the block;
   * Merkle commits: parallel/merkle.py ShardedTree (subtrees of the
     blocks, the top log2 D levels on every rank);
@@ -44,7 +44,7 @@ import torch
 from ..engine import fri as FRI
 from ..engine import merkle as M
 from ..engine.prover import Prover
-from ..ops import extfield as XF, field as F, ntt as NTT
+from ..ops import field as F, kernels as K, ntt as NTT
 from . import ntt as PNTT
 from .merkle import ShardedTree
 from .mesh import make_mesh
@@ -166,14 +166,10 @@ class ShardedProver(Prover):
         return got.T.reshape(d, self.n // D, k).transpose(1, 2).contiguous()
 
     # -- OOD ------------------------------------------------------------------
-    def _ood_table(self, pts):
-        """Powers r*n/D .. (r+1)*n/D - 1 of the OOD points pts [d, 3], for
-        this rank's block of coefficients -> [d, 3, n/D]."""
-        d, nb = self.d, self.n // self.D
-        tbl = XF.ext_powers_dyn(pts, nb, d)
-        step = XF.ext_mul(tbl[..., -1], pts, d)                # pts^(n/D)
-        start = XF.ext_powers_dyn(step, self.rank + 1, d)[..., -1]
-        return XF.ext_mul(tbl, start[..., None], d)
+    def _ood_start(self):
+        """The power r*n/D of the OOD points that meets this rank's first
+        coefficient."""
+        return self.rank * (self.n // self.D)
 
     def _ood_sum(self, *parts):
         """Every rank's partial sums, gathered and added in the field."""
@@ -212,23 +208,11 @@ class ShardedProver(Prover):
 
     def _fold_group(self, rows, xi, o: int, gw: int, size: int, fold: int):
         """The fold of this rank's leaves (rows from _fri_group) -> its
-        block [d, L] of the folded layer: radix-2 folds of the values at
-        j + t * size/fold with those at j + (t + h) * size/fold, with 1/x
-        at the global positions."""
+        block [d, L] of the folded layer: one fri_fold launch on the values
+        at the global positions j0 + j + t * size/fold, j0 = rank * L."""
         d, L = self.d, rows.shape[-1]
-        g = rows.reshape(fold, d, L).transpose(0, 1)       # [d, fold, L]
-        j0, step = self.rank * L, size // fold
-        while g.shape[1] > 1:
-            h = g.shape[1] // 2
-            o_inv, w_inv = pow(o, F.P - 2, F.P), pow(gw, F.P - 2, F.P)
-            shift = F.from_ints([o_inv * pow(w_inv, j0 + t * step, F.P)
-                                 for t in range(h)], self.device)
-            inv_x = F.mul(F.powers(w_inv, L, self.device)[None, :],
-                          shift[:, None])                  # [h, L]
-            g = FRI.fold_halves(g[:, :h], g[:, h:], inv_x, xi)
-            xi = XF.ext_mul(xi[:, None], xi[:, None], d)[:, 0]
-            o, gw = o * o % F.P, gw * gw % F.P
-        return g[:, 0]
+        return K.fri_fold(rows.reshape(fold, d, L), xi, o, gw,
+                          j0=self.rank * L, step=size // fold)
 
     def _fri_layers(self, coin, cur, ck):
         """As Prover._fri_layers on the DEEP block cur [d, bn/D]; layers of

@@ -17,9 +17,13 @@ of the curve constant b3 and the composition at extension degrees 1, 2
 and 3, also on an all-(p - 1) input that brings its unreduced sums
 closest to 2^128; the NTT and the coset LDE, csrc/ntt.cu, at single
 columns of 2^0 .. 2^23 points, at every shape the paths launched, at
-[94, 2^20] -> 2^23 and on an all-(p - 1) input). Every proof path checks
-one evaluation launch (the transaction AIR's) and one composition launch
-a domain segment, and launches of the ntt and lde kernels. Two
+[94, 2^20] -> 2^23 and on an all-(p - 1) input; the proof's tail,
+csrc/deep.cu: the OOD values, the DEEP composition and the FRI fold, at
+every shape the paths launched, the sharded ranks' included). Every proof
+path checks one evaluation launch (the transaction AIR's) and one
+composition launch a domain segment, launches of the ntt and lde kernels,
+one ood launch, one deep launch a segment and one fri_fold launch a FRI
+layer; its phase spans carry each phase's peak device memory. Two
 main paths run with their launch counts set to 0 just before and read just
 after: the rescue chain of length 1024 (Rescue commitments) and the
 composed state-transition AIR at 128 transactions, depth 15, with bench.py's
@@ -98,7 +102,16 @@ the evaluation and composition kernels' (on a random trace LDE over the
     python3 chip_smoke.py --ntt
 
 the ntt and lde kernels' (at the transaction paths' shapes, each pass
-timed alone), and
+timed alone),
+
+    python3 chip_smoke.py --deep
+
+the proof's tail alone: the ood, deep and fri_fold kernels (csrc/deep.cu)
+bit for bit against their plain versions at the transaction paths' shapes
+and timed, and phase_ood, phase_deep and the FRI folds of the 128- and
+1024-transaction paths (base and cubic; AIR tables, random inputs, no
+witness) apart from the coin draws, through the kernels and through the
+PyTorch route they replaced (~1 minute of script with the build), and
 
     python3 chip_smoke.py --hashes [blake3|sha256|sha3 ...]
 
@@ -231,6 +244,40 @@ NTT_PLAIN_SLICE = 1 << 25
 NTT_CHECK_LOG = 23
 NTT_FULL = (4, 1 << 20)
 LDE_BIG = (94, 1 << 20, 8)
+# The proof's tail (csrc/deep.cu) on the transaction paths (94 trace
+# columns, 8 composition columns, d = 1 and 3), for `--deep` (the default
+# run checks the shapes the wrappers recorded, these among them): ood
+# (d, w, k, m, s) at 128 and 1024 transactions and on the four sharded
+# ranks' coefficient blocks of both proofs (2^15 and 2^18 coefficients
+# from r m); deep (d, w, k, S) on a 2^20-point segment (the whole
+# 128-transaction domain, one segment of the 1024-transaction one and of
+# a 1024-transaction rank's 2^21 points) and on a 128-transaction rank's
+# 2^18 points; fri_fold (d, fold, L, layer size, j0) on every layer of
+# both proofs, fold 4 down to 256 values, and on the ranks' blocks of
+# every sharded layer of both (2^20 .. 2^10 and 2^23 .. 2^9 values, L a
+# sixteenth from r L). The first of each *_TIMED is the row of the
+# kernels line (the cubic 128-transaction proof's).
+TAIL_W, TAIL_K, TAIL_RANKS = 94, 8, 4
+OOD_MAIN = tuple((d, TAIL_W, TAIL_K, m, 0) for m in (1 << 17, 1 << 20)
+                 for d in (1, 3)) + tuple(
+    (d, TAIL_W, TAIL_K, m, r * m) for m in (1 << 15, 1 << 18)
+    for r in range(TAIL_RANKS) for d in (1, 3))
+DEEP_MAIN = tuple((d, TAIL_W, TAIL_K, S) for S in (1 << 20, 1 << 18)
+                  for d in (1, 3))
+FOLD_MAIN = tuple((d, 4, size // 4, size, 0) for size in
+                  (1 << e for e in range(9, 24)) for d in (1, 3)) + tuple(
+    (d, 4, size // 16, size, r * size // 16) for size in
+    (1 << e for e in range(9, 24)) for r in range(TAIL_RANKS)
+    for d in (1, 3))
+OOD_TIMED = ((3, TAIL_W, TAIL_K, 1 << 17, 0), (1, TAIL_W, TAIL_K, 1 << 17, 0),
+             (1, TAIL_W, TAIL_K, 1 << 20, 0), (3, TAIL_W, TAIL_K, 1 << 20, 0))
+DEEP_TIMED = ((3, TAIL_W, TAIL_K, 1 << 20), (1, TAIL_W, TAIL_K, 1 << 20))
+FOLD_TIMED = ((3, 4, 1 << 18, 1 << 20, 0), (1, 4, 1 << 18, 1 << 20, 0),
+              (1, 4, 1 << 20, 1 << 22, 0), (3, 4, 1 << 20, 1 << 22, 0),
+              (3, 4, 1 << 8, 1 << 10, 0))
+# the plain version's checks take column groups of ood (its [d, 2, cols, m]
+# product) and point slices of deep (its [d, w, S] products)
+TAIL_PLAIN_COLS, TAIL_PLAIN_POINTS = 16, 1 << 18
 # Hash kernel checks: leaf shapes [k, B]; the first is the row of the
 # kernels line. BLAKE3: the base path's trace rows, composition rows and
 # first FRI layer, then ragged ones. SHA: the trace rows [94, 2^20], the
@@ -838,6 +885,8 @@ def phase_full(dev):
     for name in ("f63_mul", "rescue_permutation", "ntt", "lde"):
         check(launches[name] > 0, f"{name} was not launched on the chain "
               "main path")
+    _check_tail(launches, prover.bn // prover.chunk, len(proof.fri_roots),
+                "chain 1024")
     _golden_check("rescue_chain1024_rescue", golden, prover, proof)
     return launches, ex, proof
 
@@ -1361,15 +1410,20 @@ ROW_PATHS = {"rescue_permutation": "chain1024",
 # evaluation and composition kernels besides their hash's; the standalone
 # AIRs their own evaluations and the composition kernel (the 128-unit ones
 # the trace kernel too)
+TAIL_KERNELS = ("ood", "deep", "fri_fold")
+# every path launches ood and deep; fri_fold once a FRI layer, and a
+# domain at or below the FRI remainder (merkle-init's) has none:
+# _check_tail counts them exactly
+TAIL_NEED = ("ood", "deep")
 TX_KERNELS = ("f63_mul", "blake3_leaves", "blake3_tree", "transaction_trace",
-              "transaction_eval", "compose", "ntt", "lde")
+              "transaction_eval", "compose", "ntt", "lde") + TAIL_NEED
 SHA3_KERNELS = ("f63_mul", "sha3_leaves", "sha3_tree", "transaction_trace",
-                "transaction_eval", "compose", "ntt", "lde")
+                "transaction_eval", "compose", "ntt", "lde") + TAIL_NEED
 SHA256_KERNELS = ("f63_mul", "sha256_leaves", "sha256_tree",
                   "transaction_trace", "transaction_eval", "compose", "ntt",
-                  "lde")
+                  "lde") + TAIL_NEED
 SUBAIR_KERNELS = ("f63_mul", "blake3_leaves", "blake3_tree", "compose", "ntt",
-                  "lde")
+                  "lde") + TAIL_NEED
 
 
 def phase_checkpoint(dev):
@@ -1453,9 +1507,12 @@ def _timed_proof(dev, ex, what, need, trace=None, again=True):
     t_last = [0.0]
 
     def mark(label):
+        # the span's time and the peak device memory within it
         torch.cuda.synchronize()
         now = time.perf_counter()
-        spans.append((label, (now - t_last[0]) * 1e3))
+        spans.append((label, (now - t_last[0]) * 1e3,
+                      torch.cuda.max_memory_allocated()))
+        torch.cuda.reset_peak_memory_stats()
         t_last[0] = now
 
     torch.cuda.reset_peak_memory_stats()
@@ -1467,12 +1524,12 @@ def _timed_proof(dev, ex, what, need, trace=None, again=True):
     proof = prover.prove(trace, mark=mark)
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in K.WRAPPERS}
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(p for _, _, p in spans)
     raw = proof.to_bytes()
     log(f"{what}: prove wall (trace build included) {wall * 1e3:.1f} ms; "
         f"prover set-up {setup_ms:.1f} ms")
-    for label, ms in spans:
-        log(f"  {label:32s} {ms:10.1f} ms")
+    for label, ms, pk in spans:
+        log(f"  {label:32s} {ms:10.1f} ms  peak {pk / 2**20:8.0f} MiB")
     log(f"  peak device memory {peak / 2**20:.0f} MiB; domain {prover.bn} "
         f"points in segments of {prover.chunk}; kernel launches {launches}")
     for name in need:
@@ -1491,6 +1548,7 @@ def _timed_proof(dev, ex, what, need, trace=None, again=True):
     for hash_fn in ("blake3", "sha256", "sha3"):
         check(launches[f"{hash_fn}_tree"] == launches[f"{hash_fn}_leaves"],
               f"{what}: not one {hash_fn}_tree launch a commitment")
+    _check_tail(launches, segments, len(proof.fri_roots), what)
     check(raw == warm, "two proofs of the same statement differ")
     if again:
         torch.cuda.synchronize()
@@ -1503,6 +1561,16 @@ def _timed_proof(dev, ex, what, need, trace=None, again=True):
     log(f"  proof {len(raw)} B, sha256 {hashlib.sha256(raw).hexdigest()}, "
         f"security {proof.security_level()} bits")
     return prover, raw, launches
+
+
+def _check_tail(launches, segments, layers, what):
+    """One ood launch a proof, one deep launch a domain segment and one
+    fri_fold launch a FRI layer."""
+    check((launches["ood"], launches["deep"], launches["fri_fold"]) ==
+          (1, segments, layers),
+          f"{what}: ood, deep, fri_fold launched {launches['ood']}, "
+          f"{launches['deep']}, {launches['fri_fold']} times; expected 1, "
+          f"{segments} (segments), {layers} (FRI layers)")
 
 
 def phase_tx_full(dev, ex, what="bench options"):
@@ -1586,10 +1654,14 @@ def profile_tx_proof(ex, prover, what):
                                 "transaction_trace", "transaction_eval",
                                 "compose", "rescue_perm",
                                 "ntt_pass_kernel<false",
-                                "ntt_pass_kernel<true")
+                                "ntt_pass_kernel<true", "ood_kernel",
+                                "ood_total_kernel", "deep_kernel",
+                                "fri_fold_kernel")
                     if k in name), "PyTorch ops")
         key = {"ntt_pass_kernel<false": "ntt",
-               "ntt_pass_kernel<true": "lde"}.get(key, key)
+               "ntt_pass_kernel<true": "lde", "ood_kernel": "ood",
+               "ood_total_kernel": "ood", "deep_kernel": "deep",
+               "fri_fold_kernel": "fri_fold"}.get(key, key)
         gt, gc = groups.get(key, (0.0, 0))
         groups[key] = (gt + t, gc + c)
     for key, (t, c) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
@@ -2427,6 +2499,306 @@ def phase_ntt(dev, shapes=None):
     return rows
 
 
+def _ood_cost(d, w, k, m):
+    """Bytes (the coefficients read once, the [d, 2w + k] values written)
+    and 32-bit multiplies of ood as the kernel sums: an index's 2 d w trace
+    products and d^2 k composition products into unreduced sums, and one
+    extension multiply an index and point for the powers (d = 1: a
+    Montgomery multiply; else d^2 products and 2d - 1 reductions)."""
+    ext = MULS_PER_MMUL if d == 1 else d * d * MULS_PER_MAC \
+        + (2 * d - 1) * MULS_PER_REDC
+    return (8 * (w + d * k) * m + 8 * d * (2 * w + k),
+            m * ((2 * d * w + d * d * k) * MULS_PER_MAC + 3 * ext))
+
+
+def _deep_cost(d, w, k, S):
+    """Bytes (a point's w trace and d k composition values and its x read,
+    d values written) and 32-bit multiplies of deep (a block's sums of the
+    OOD values, some d^2 (2 w + k) products, left out): a point's 2 d w +
+    d^2 k products into unreduced sums and their 4 d - 1 reductions (2 d
+    for the two trace sums, 2 d - 1 for the composition's), and 11
+    extension multiplies (three denominators' pair products and their
+    product, three numerator terms, and Montgomery's trick over the
+    domain: a prefix product, two on the way back, the quotient). The one
+    inversion the whole domain needs is left out; the kernel's one a run
+    of points is its own choice."""
+    ext = MULS_PER_MMUL if d == 1 else d * d * MULS_PER_MAC \
+        + (2 * d - 1) * MULS_PER_REDC
+    per = (2 * d * w + d * d * k) * MULS_PER_MAC \
+        + (4 * d - 1) * MULS_PER_REDC + 11 * ext
+    return 8 * S * (w + d * k + 1 + d), S * per
+
+
+def _fold_cost(d, fold, L):
+    """Bytes (fold d values read, d written a point) and 32-bit multiplies
+    of fri_fold: a radix-2 fold is 2 d + 1 Montgomery multiplies and one
+    extension multiply; fold 4 three of them, 1/x from one table product
+    (and one more for the second pair, one squaring for x^2)."""
+    ext = MULS_PER_MMUL if d == 1 else d * d * MULS_PER_MAC \
+        + (2 * d - 1) * MULS_PER_REDC
+    halves = fold - 1
+    per = halves * ((2 * d + 1) * MULS_PER_MMUL + ext) \
+        + (MULS_PER_MMUL if fold == 2 else 3 * MULS_PER_MMUL + ext)
+    return 8 * d * L * (fold + 1), L * per
+
+
+def _tail_inputs(rand, name, shape):
+    """Random inputs of a recorded shape: (args, kwargs) of the wrapper."""
+    from certificate_stark_tpu_torch.ops import field as F
+    from certificate_stark_tpu_torch.utils import poly_host as PH
+    if name == "ood":
+        d, w, k, m, s = shape
+        return (rand(w, m), rand(d, k, m), rand(d, 3), s), {}
+    if name == "deep":
+        d, w, k, S = shape
+        return (rand(w, S), rand(d, k, S), rand(S), rand(d, 3), rand(d, w),
+                rand(d, w), rand(d, k), rand(d, w), rand(d, w),
+                rand(d, k)), {}
+    d, fold, L, size, j0 = shape
+    if j0 == 0 and size == fold * L:   # a whole layer: [d, n] regrouped
+        groups = rand(d, size).reshape(d, fold, L).transpose(0, 1)
+    else:                              # a rank's leaf rows
+        groups = rand(fold, d, L)
+    return (groups, rand(d), F.GENERATOR, PH.root_of_unity(size)), dict(
+        j0=j0, step=size // fold)
+
+
+def _tail_plain(K, name, args, kw, out):
+    """max |kernel - plain| of one call, the plain version on ood's column
+    groups or deep's point slices (their temporaries are many times the
+    input)."""
+    with K.plain_versions():
+        if name == "fri_fold":
+            return int((out - K.fri_fold(*args, **kw)).abs().max())
+        if name == "ood":
+            coef, h, pts, s = args
+            w, k, G = coef.shape[0], h.shape[1], TAIL_PLAIN_COLS
+            err = 0
+            for c0 in range(0, max(w, k), G):
+                exp = K.ood(coef[c0:c0 + G], h[:, c0:c0 + G], pts, s)
+                cw, ck = exp[0].shape[1], exp[2].shape[1]
+                for got, e, n in ((out[0][:, c0:c0 + cw], exp[0], cw),
+                                  (out[1][:, c0:c0 + cw], exp[1], cw),
+                                  (out[2][:, c0:c0 + ck], exp[2], ck)):
+                    if n:
+                        err = max(err, int((got - e).abs().max()))
+            return err
+        lde, h, xs, *rest = args
+        S, err = xs.shape[0], 0
+        for i in range(0, S, TAIL_PLAIN_POINTS):
+            sl = slice(i, i + TAIL_PLAIN_POINTS)
+            exp = K.deep(lde[:, sl], h[..., sl], xs[sl], *rest)
+            err = max(err, int((out[:, sl] - exp).abs().max()))
+        return err
+
+
+def phase_tail(dev, shapes=None):
+    """ood, deep and fri_fold (csrc/deep.cu) bit for bit against their
+    plain versions on random inputs at every shape in `shapes` (the
+    wrappers' records of the paths run, the sharded ranks' among them:
+    {"ood": {(d, w, k, m, s)}, "deep": {(d, w, k, S)}, "fri_fold": {(d,
+    fold, L, size, j0)}}) and at OOD_MAIN, DEEP_MAIN, FOLD_MAIN; deep also
+    with domain points equal to z (d = 1), whose values must be 0. Then
+    each timed (CUDA events; a call as the prover calls it, and on the
+    device alone from a CUDA graph) at its *_TIMED shapes beside its
+    bound, the plain version's time at the row's shape, and the ptxas
+    report (every instantiation). Returns the three rows of the kernels
+    line."""
+    from certificate_stark_tpu_torch.ops import kernels as K
+    rand = _randoms(dev)
+    fns = {"ood": K.ood, "deep": K.deep, "fri_fold": K.fri_fold}
+    main = {"ood": OOD_MAIN, "deep": DEEP_MAIN, "fri_fold": FOLD_MAIN}
+    err = {name: 0 for name in fns}
+    count = {name: 0 for name in fns}
+    t0 = time.perf_counter()
+    for name, fn in fns.items():
+        todo = set(main[name]) | set((shapes or {}).get(name, ()))
+        for shape in sorted(todo):
+            args, kw = _tail_inputs(rand, name, shape)
+            out = fn(*args, **kw)
+            e = _tail_plain(K, name, args, kw, out)
+            err[name] = max(err[name], e)
+            count[name] += 1
+            check(e == 0, f"{name} differs from its plain version at "
+                  f"{shape}")
+            del args, out
+        torch.cuda.empty_cache()
+    # zero denominators: domain points equal to z at d = 1
+    args, _ = _tail_inputs(rand, "deep", (1, TAIL_W, TAIL_K, 1 << 12))
+    xs, pts = args[2], args[3]
+    xs[[5, 700, 4000]] = pts[0, 0]
+    got = K.deep(*args)
+    check(int(got[:, [5, 700, 4000]].abs().max()) == 0 and
+          _tail_plain(K, "deep", args, {}, got) == 0,
+          "deep: a zero denominator's point is not 0")
+    torch.cuda.synchronize()
+    log(f"ood, deep, fri_fold == plain: {count['ood']}, {count['deep']} and "
+        f"{count['fri_fold']} shapes ({len((shapes or {}).get('ood', ()))}, "
+        f"{len((shapes or {}).get('deep', ()))} and "
+        f"{len((shapes or {}).get('fri_fold', ()))} of them recorded on "
+        f"the paths), bit for bit; deep's zero denominators give 0; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    rows = []
+    for name, timed, cost, where, kern in (
+            ("ood", OOD_TIMED, lambda s: _ood_cost(*s[:4]),
+             "certificate_stark_tpu/engine/prover.py:748",
+             ("ood_kernelILi1E", "ood_kernelILi2E", "ood_kernelILi3E",
+              "ood_total_kernel")),
+            ("deep", DEEP_TIMED, lambda s: _deep_cost(*s),
+             "certificate_stark_tpu/engine/prover.py:802",
+             ("deep_kernelILi1E", "deep_kernelILi2E", "deep_kernelILi3E")),
+            ("fri_fold", FOLD_TIMED, lambda s: _fold_cost(*s[:3]),
+             "certificate_stark_tpu/engine/prover.py:1088",
+             tuple(f"fri_fold_kernelILi{d}ELi{f}E" for d in (1, 2, 3)
+                   for f in (2, 4)))):
+        uses = {k: _ptxas_usage("deep", k) for k in kern}
+        log(f"{name}: ptxas " + "; ".join(f"{k} {u}" for k, u in
+                                          uses.items()))
+        by_shape = []
+        fn = fns[name]
+        for shape in timed:
+            args, kw = _tail_inputs(rand, name, shape)
+            call = lambda: fn(*args, **kw)                      # noqa: E731
+            ms = cuda_ms(call, 5)
+            dev_ms = graph_ms(call, 10)
+            bnd, by = bound_ms(*cost(shape))
+            entry = dict(shape=list(shape), ms=ms, device_ms=dev_ms,
+                         bound_ms=bnd, bound_by=by)
+            if shape == timed[0]:
+                torch.cuda.empty_cache()
+                _plain_timed(call)
+                entry["plain_ms"] = _plain_timed(call)[1]
+            by_shape.append(entry)
+            log(f"{name} {shape}: a call {ms:.4f} ms, device {dev_ms:.4f} ms "
+                f"(a CUDA graph of 10), bound {bnd:.4f} ms ({by}; "
+                f"{100 * bnd / ms:.1f}% of a call)"
+                + (f", plain {entry['plain_ms']:.1f} ms"
+                   if "plain_ms" in entry else ""))
+            del args, kw, call
+            torch.cuda.empty_cache()
+        row = by_shape[0]
+        shape = row["shape"]
+        use = uses[kern[shape[0] - 1] if name != "fri_fold" else
+                   f"fri_fold_kernelILi{shape[0]}ELi{shape[1]}E"]
+        rows.append(dict(
+            name=name, route="cuda",
+            source="certificate_stark_tpu_torch/csrc/deep.cu",
+            replaces=where, max_abs_err=err[name], library_ms=None,
+            **{k: row[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                   "bound_by")},
+            ms_by_shape=by_shape, checks=count[name], ptxas=uses, **use))
+    return rows
+
+
+@contextlib.contextmanager
+def _tail_before_kernels():
+    """The prover's tail as it ran before the ood, deep and fri_fold
+    kernels: their plain versions called outside plain_versions(), so
+    that each field multiply is an f63_mul launch."""
+    from certificate_stark_tpu_torch.ops import kernels as K
+    saved = K.ood, K.deep, K.fri_fold
+
+    def deep(*args, out=None):
+        q = K.deep_plain(*args)
+        return q if out is None else out.copy_(q)
+    K.ood, K.deep, K.fri_fold = K.ood_plain, deep, K.fri_fold_plain
+    try:
+        yield
+    finally:
+        K.ood, K.deep, K.fri_fold = saved
+
+
+def _tail_spans(prover, what):
+    """The proof's tail of `prover`'s path apart from the coin draws:
+    phase_ood, phase_deep (every segment) and the FRI folds (every layer,
+    no commitments) on random inputs of its shapes, each timed (CUDA
+    events, and the host wall of one synchronized call) through the
+    kernels and through the PyTorch route they replaced
+    (_tail_before_kernels), with its launches and the peak device memory
+    it adds."""
+    from certificate_stark_tpu_torch.engine import fri as FRI
+    from certificate_stark_tpu_torch.ops import kernels as K
+    rand = _randoms(prover.device)
+    d, w, k, n, bn = prover.d, prover.w, prover.k, prover.n, prover.bn
+    coeffs, h_coeffs, z = rand(w, n), rand(d, k, n), rand(d)
+    lde, h_lde = rand(w, bn), rand(d, k, bn)
+    oods = prover.phase_ood(coeffs, h_coeffs, z)
+    g = (rand(d, w), rand(d, w), rand(d, k))
+    evals, xi = rand(d, bn), rand(d)
+    opts = prover.opts
+
+    def folds():
+        cur, size, o, gw = evals, bn, prover.offset, prover.gen_big
+        while size > opts.fri_max_remainder:
+            cur = FRI.fold(cur, xi, o, gw, opts.fri_folding)
+            size //= opts.fri_folding
+            o, gw = (pow(o, opts.fri_folding, K.P),
+                     pow(gw, opts.fri_folding, K.P))
+        return cur
+
+    out = {}
+    for label, fn in (
+            ("phase_ood", lambda: prover.phase_ood(coeffs, h_coeffs, z)),
+            ("phase_deep", lambda: prover.phase_deep(lde, h_lde, *oods, *g,
+                                                     z)),
+            ("FRI folds", folds)):
+        res = {}
+        for route in ("kernels", "before"):
+            ctx = _tail_before_kernels() if route == "before" \
+                else contextlib.nullcontext()
+            with ctx:
+                fn()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                K.reset_launches()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                counts = {f.__name__: f.launches for f in K.WRAPPERS
+                          if f.launches}
+                peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+                ms = cuda_ms(fn, 3)
+            res[route] = dict(ms=ms, wall_ms=wall, peak_mib=peak,
+                              launches=counts)
+        out[label] = res
+        kr, br = res["kernels"], res["before"]
+        log(f"  {what}, {label} apart from the coin draws: kernels "
+            f"{kr['ms']:.2f} ms (wall {kr['wall_ms']:.2f} ms, "
+            f"+{kr['peak_mib']:.0f} MiB, launches {kr['launches']}); the "
+            f"PyTorch route before them {br['ms']:.2f} ms (wall "
+            f"{br['wall_ms']:.2f} ms, +{br['peak_mib']:.0f} MiB, launches "
+            f"{br['launches']})")
+    del coeffs, h_coeffs, lde, h_lde, evals
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tail_paths(dev):
+    """`--deep`'s spans: _tail_spans on provers of the 128- and
+    1024-transaction AIRs (tables only, no witness), with bench.py's
+    options and the example CLI's cubic ones."""
+    from certificate_stark_tpu_torch.engine.options import ProofOptions
+    from certificate_stark_tpu_torch.engine.prover import Prover
+    from certificate_stark_tpu_torch.models import transaction as TX
+    from certificate_stark_tpu_torch.utils import curve as CV
+    CV.set_curve("fp2")
+    out = {}
+    for count in (TX_COUNT, TX1024):
+        for key, od in (("base", BENCH_OPTS), ("cubic", CLI_OPTS)):
+            air = TX.TransactionAir(count * TX.CYCLE, ([1] * 7, [2] * 7),
+                                    ProofOptions(**od), depth=TX_DEPTH)
+            prover = Prover(air, device=dev)
+            out[f"{count}tx_{key}"] = _tail_spans(
+                prover, f"{count} tx, {key}")
+            del prover
+            torch.cuda.empty_cache()
+    return out
+
+
 def phase_chunked128(dev, ex, raw):
     """The 128-transaction proof of ex (bench.py's options) with a forced
     chunk of an eighth of its domain: the same bytes as the unchunked
@@ -2541,7 +2913,8 @@ def _sharded_rank(mesh, jobs, warm):
             launches={fn.__name__: fn.launches for fn in K.WRAPPERS},
             peak=torch.cuda.max_memory_allocated(dev),
             block=(prover.j_lo, prover.j_hi), chunk=prover.chunk,
-            shapes=dict(ntt=set(K.ntt.shapes), lde=set(K.lde.shapes)))
+            shapes={fn.__name__: set(fn.shapes) for fn in (
+                K.ntt, K.lde, K.ood, K.deep, K.fri_fold)})
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         again = prover.prove(trace).to_bytes()
@@ -2582,6 +2955,7 @@ def _report_sharded(jobs, results, backend, singles=None):
     instrumented wall), peak memory and launches; with the single-card
     wall of the same proof where `singles` has it. Returns {job: launches
     summed over the ranks}."""
+    from certificate_stark_tpu_torch.engine.proof import Proof
     D = len(results)
     summed = {}
     for job in jobs:
@@ -2632,6 +3006,9 @@ def _report_sharded(jobs, results, backend, singles=None):
                   (segments if job["air"][0] == "tx" else 0),
                   f"sharded {name}: not one transaction_eval and compose "
                   f"launch a segment on every rank ({p['launches']})")
+            _check_tail(p["launches"], segments,
+                        len(Proof.from_bytes(raw).fri_roots),
+                        f"sharded {name}, a rank")
         summed[name] = total
     return summed
 
@@ -2649,7 +3026,8 @@ def phase_parallel(dev, ex):
     equal to the pinned bytes. The kernels are built (phase_build) before
     the ranks start; the ranks only load them. Returns the launches of the
     128-transaction run summed over the ranks (`sharded4_tx128`), and the
-    ntt and lde shapes the ranks launched (for phase_ntt)."""
+    shapes the ranks launched of ntt, lde (for phase_ntt), ood, deep and
+    fri_fold (for phase_tail)."""
     from certificate_stark_tpu_torch.engine.options import ProofOptions
     from certificate_stark_tpu_torch.models import rescue_chain as RC
     from certificate_stark_tpu_torch.models import transaction as TX
@@ -2688,7 +3066,7 @@ def phase_parallel(dev, ex):
         f"{time.perf_counter() - t0:.1f} s (spawn included), traces and "
         f"witnesses {prep:.1f} s")
     launches = _report_sharded(jobs, results, "gloo")
-    shapes = {"ntt": set(), "lde": set()}
+    shapes = {k: set() for k in ("ntt", "lde") + TAIL_KERNELS}
     for res in results:
         for job in res.values():
             for k in shapes:
@@ -2901,6 +3279,16 @@ def run(dev, mode, t_start, witness):
         print(json.dumps(dict(ntt=rows)))
         print(card_line())
         return 0
+    if mode == ["--deep"]:
+        # the proof's tail alone: ood, deep and fri_fold at the transaction
+        # paths' shapes, and phase_ood, phase_deep and the FRI folds of the
+        # 128- and 1024-transaction paths apart from the coin draws
+        rows = phase_tail(dev)
+        spans = phase_tail_paths(dev)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps(dict(tail=rows, spans=spans)))
+        print(card_line())
+        return 0
     if mode == ["--eval"]:
         # the evaluation and composition kernels alone: the 128-transaction
         # AIR's tables with a random trace LDE
@@ -2970,6 +3358,10 @@ def run(dev, mode, t_start, witness):
     rows += phase_ntt(dev, {
         "ntt": K.ntt.shapes | sharded_shapes["ntt"],
         "lde": K.lde.shapes | sharded_shapes["lde"]})
+    rows += phase_tail(dev, {
+        "ood": K.ood.shapes | sharded_shapes["ood"],
+        "deep": K.deep.shapes | sharded_shapes["deep"],
+        "fri_fold": K.fri_fold.shapes | sharded_shapes["fri_fold"]})
     paths = {"chain1024": chain_launches, "tx128": tx_launches,
              "tx128_cubic": cli_launches, **sha_launches, **sub_launches,
              **tx1024_launches, **grind_launches,

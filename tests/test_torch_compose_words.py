@@ -27,9 +27,12 @@ from certificate_stark_tpu_torch.ops import kernels as K
 from test_torch_rescue_kernel import (M32, P, Ptx, mul_wide, redc,
                                       redc_wide)
 
-SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), "certificate_stark_tpu_torch", "csrc", "compose.cu")
-_TEXT = open(SRC).read()
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "certificate_stark_tpu_torch", "csrc")
+# the kernel and f63.cuh, which holds its unreduced sums (Wide, wide_mac,
+# the fold constants) since deep.cu shares them
+_TEXT = "".join(open(os.path.join(CSRC, f)).read()
+                for f in ("compose.cu", "f63.cuh"))
 FOLD_EVERY = int(re.search(r"#define FOLD_EVERY (\d+)", _TEXT).group(1))
 FOLD_TOP = int(re.search(r"#define FOLD_TOP (0x[0-9a-fA-F]+)u", _TEXT)
                .group(1), 16)

@@ -2,9 +2,11 @@
 the goldens `rescue_chain16_cubic_grind4` (tests/vectors/transcripts.json),
 `rescue_chain16_quadratic_rescue_grind11` and
 `transaction_2tx_d3_cubic_blake3` (tests/vectors/torch_goldens.json) are
-reproduced byte for byte with their coin journals, and both the JAX
-package's verifier and the port's accept each proof, and a fold-by-2
-quadratic proof that no golden pins. Tolerance: exact equality.
+reproduced byte for byte with their coin journals, each through the
+proof's tail wrappers (ops/kernels.py `ood`, `deep`, `fri_fold`, whose
+plain versions are counted), and both the JAX package's verifier and the
+port's accept each proof, and a fold-by-2 quadratic proof that no golden
+pins. Tolerance: exact equality.
 
 The module runs on the fp2 curve instance (the goldens' one) in both
 packages."""
@@ -27,6 +29,7 @@ from certificate_stark_tpu_torch.engine.proof import Proof
 from certificate_stark_tpu_torch.engine.prover import Prover
 from certificate_stark_tpu_torch.models import rescue_chain as RC
 from certificate_stark_tpu_torch.models import transaction as TX
+from certificate_stark_tpu_torch.ops import kernels as K
 from certificate_stark_tpu_torch.ops.field import P
 from certificate_stark_tpu_torch.utils import curve as CV
 
@@ -69,10 +72,31 @@ def _golden(name):
     return g, ProofOptions(**(opts or g["options"]))
 
 
+def _counting_tail():
+    """The tail wrappers' plain versions wrapped to count their calls ->
+    (counts, restore)."""
+    counts = {"ood_plain": 0, "deep_plain": 0, "fri_fold_plain": 0}
+    saved = {name: getattr(K, name) for name in counts}
+
+    def counted(name):
+        def fn(*args, **kwargs):
+            counts[name] += 1
+            return saved[name](*args, **kwargs)
+        return fn
+    for name in counts:
+        setattr(K, name, counted(name))
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(K, name, fn)
+    return counts, restore
+
+
 @pytest.fixture(scope="module", params=sorted(GOLDENS))
 def proven(request):
-    """(name, example, JAX air class and kwargs, coin journal, bytes) of the
-    port's proof of one golden's statement."""
+    """(name, example, JAX air class and kwargs, coin journal, bytes, the
+    tail's plain calls with the proof's FRI layers and domain segments) of
+    the port's proof of one golden's statement."""
     name = request.param
     g, opts = _golden(name)
     if name.startswith("transaction"):
@@ -85,12 +109,17 @@ def proven(request):
         jair = (JRC.RescueChainAir, {})
     prover = Prover(ex.air(), device="cpu")
     prover.coin_journal = []
-    raw = prover.prove(ex.trace).to_bytes()
-    return name, ex, jair, prover.coin_journal, raw
+    counts, restore = _counting_tail()
+    try:
+        proof = prover.prove(ex.trace)
+    finally:
+        restore()
+    tail = (counts, len(proof.fri_roots), len(prover._segments()))
+    return name, ex, jair, prover.coin_journal, proof.to_bytes(), tail
 
 
 def test_golden_reproduced(proven):
-    name, ex, _, journal, raw = proven
+    name, ex, _, journal, raw, _ = proven
     g, _ = _golden(name)
     if "initial_root" in g:
         assert [list(r) for r in ex.pub_inputs()] == [g["initial_root"],
@@ -101,7 +130,7 @@ def test_golden_reproduced(proven):
 
 
 def test_jax_verifier_accepts(proven):
-    name, ex, (air_class, kwargs), _, raw = proven
+    name, ex, (air_class, kwargs), _, raw, _ = proven
     _, opts = _golden(name)
     assert JV.verify(air_class, JProof.from_bytes(raw), ex.pub_inputs(),
                      air_kwargs=kwargs,
@@ -109,8 +138,19 @@ def test_jax_verifier_accepts(proven):
 
 
 def test_port_verifier_accepts(proven):
-    _, ex, _, _, raw = proven
+    _, ex, _, _, raw, _ = proven
     assert ex.verify(Proof.from_bytes(raw))
+
+
+def test_tail_through_the_wrappers(proven):
+    """The golden's proof ran its tail through the three wrappers: one
+    ood, a deep a domain segment and a fri_fold a FRI layer, each on the
+    CPU through its plain version (test_golden_reproduced holds the
+    bytes)."""
+    counts, layers, segments = proven[-1]
+    assert layers > 0 and segments > 0
+    assert counts == {"ood_plain": 1, "deep_plain": segments,
+                      "fri_fold_plain": layers}
 
 
 def test_fold2_quadratic_proof_passes_both_verifiers():
