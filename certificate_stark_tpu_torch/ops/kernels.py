@@ -631,13 +631,14 @@ _ENTRY_POINTS = {
             "lde_launch": [_vp, _vp, _ll, _int, _int, _IP, _int, _int, _IP]
             + [_vp] * 4 + [_int] + [_vp] * 2 + [_int, _vp]},
     # ood: coef, its row stride, w; h and its coordinate and column
-    # strides, k; pts, s, m, d, part, out, stream. deep: lde, its row
-    # stride; h and its two strides; xs, pts, ood_z, ood_zg, ood_h, g_z,
-    # g_zg, g_h, w, k, d, S, out, its row stride, stream. fri_fold: src,
+    # strides, k; pts, s, m, d, scratch and its blocks' rows, out, stream.
+    # deep: lde, its row stride; h and its two strides; xs, pts, ood_z,
+    # ood_zg, ood_h, g_z, g_zg, g_h, w, k, d, S, out, its row stride,
+    # stream. fri_fold: src,
     # its value and coordinate strides, L, j0, lo, hi, h, step_inv, inv2,
     # xi, d, fold, out, stream
     "deep": {"ood_launch": [_vp, _ll, _int, _vp, _ll, _ll, _int, _vp, _ll,
-                            _ll, _int, _vp, _vp, _vp],
+                            _ll, _int, _vp, _ll, _vp, _vp],
              "deep_launch": [_vp, _ll, _vp, _ll, _ll] + [_vp] * 8
              + [_int] * 3 + [_ll, _vp, _ll, _vp],
              "fri_fold_launch": [_vp, _ll, _ll, _ll, _ll, _vp, _vp, _int,
@@ -1366,7 +1367,14 @@ lde.shapes = set()
 # ---------------------------------------------------------------------------
 # the proof's tail: OOD values, the DEEP composition, the FRI fold
 # ---------------------------------------------------------------------------
-OOD_STRIP = 1 << 9      # csrc/deep.cu: a block's coefficient indices
+# csrc/deep.cu: a strip's coefficient indices (each s32 sum of byte
+# products on the tensor cores has at most this many terms); the widest
+# trace and composition that deep takes (its B fragments in shared memory)
+OOD_STRIP = 1 << 9
+DEEP_MAX_W, DEEP_MAX_K = 512, 32
+# ood's partial sums: room for this many blocks (above the card's
+# resident blocks; fewer where the coefficients are fewer)
+OOD_BLOCKS = 1024
 
 
 def _launch_device(t: torch.Tensor, name: str):
@@ -1411,11 +1419,12 @@ def ood(coef: torch.Tensor, h_coeffs: torch.Tensor, pts: torch.Tensor,
     z g, and the composition columns h_coeffs [d, k, m] (points contiguous)
     at z^k, with pts [d, 3] = (z, z g, z^k) -> (ood_z [d, w], ood_zg
     [d, w], ood_h [d, k]): sum_i c_i p^(s + i). The sharded prover's rank
-    passes its block's first exponent s. Two launches a call (csrc/deep.cu
-    ood_kernel over strips of OOD_STRIP indices, then the total of the
-    strips' partial sums), counted as one. The plain version for a CPU
-    tensor or inside plain_versions(). `ood.shapes` keeps every (d, w, k,
-    m, s) launched in this process."""
+    passes its block's first exponent s. Three launches a call
+    (csrc/deep.cu: the powers' tables, ood_kernel over strips of OOD_STRIP
+    indices on the tensor cores, the total of the blocks' partial sums),
+    counted as one. The plain version for a CPU tensor or inside
+    plain_versions(). `ood.shapes` keeps every (d, w, k, m, s) launched in
+    this process."""
     if use_plain(coef):
         return ood_plain(coef, h_coeffs, pts, s)
     dev = _launch_device(coef, "ood")
@@ -1429,15 +1438,22 @@ def ood(coef: torch.Tensor, h_coeffs: torch.Tensor, pts: torch.Tensor,
     if m > 1 and h_coeffs.stride(2) != 1:
         raise ValueError("ood: h_coeffs' points are not contiguous")
     _check(pts, "ood pts", dev, (d, 3))
-    V = d * (2 * w + k)
+    if s < 0:
+        raise ValueError(f"ood: start exponent {s} < 0")
     out = torch.empty((d, 2 * w + k), dtype=torch.int64, device=dev)
-    part = torch.empty((-(-m // OOD_STRIP), V), dtype=torch.int64,
-                       device=dev)
+    # the partial sums of at most `rows` blocks [rows, 2 d w + d^2 k], the
+    # powers p^r [3, d, OOD_STRIP] and each strip's start power
+    # [<= ceil(m / 32), 3, d] (the kernel picks strips of 32 ..
+    # OOD_STRIP indices)
+    rows = min(-(-m // 32), max(-(-m // OOD_STRIP), OOD_BLOCKS))
+    scratch = torch.empty(rows * (2 * d * w + d * d * k)
+                          + 3 * d * (OOD_STRIP + -(-m // 32)),
+                          dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _raise_on(_lib("deep").ood_launch(
         coef.data_ptr(), c_ld, w, h_coeffs.data_ptr(), h_coeffs.stride(0),
-        h_coeffs.stride(1), k, pts.data_ptr(), s, m, d, part.data_ptr(),
-        out.data_ptr(), stream), "ood")
+        h_coeffs.stride(1), k, pts.data_ptr(), s, m, d, scratch.data_ptr(),
+        rows, out.data_ptr(), stream), "ood")
     ood.launches += 1
     ood.shapes.add((d, w, k, m, s))
     return out[:, :w], out[:, w:2 * w], out[:, 2 * w:]
@@ -1488,9 +1504,10 @@ def deep(lde: torch.Tensor, h_lde: torch.Tensor, xs: torch.Tensor,
     whose points are contiguous, read through their strides), the points
     xs [S], pts [d, 3] = (z, z g, z^k), the OOD values ood_z, ood_zg
     [d, w] and ood_h [d, k], and the coefficients g_z, g_zg [d, w] and
-    g_h [d, k]. A point where a denominator is 0 is 0. The plain version
-    for a CPU tensor or inside plain_versions(). `deep.shapes` keeps every
-    (d, w, k, S) launched in this process."""
+    g_h [d, k]. A point where a denominator is 0 is 0. The kernel takes
+    w <= DEEP_MAX_W and k <= DEEP_MAX_K and raises beyond. The plain
+    version for a CPU tensor or inside plain_versions(). `deep.shapes`
+    keeps every (d, w, k, S) launched in this process."""
     if use_plain(lde):
         q = deep_plain(lde, h_lde, xs, pts, ood_z, ood_zg, ood_h, g_z,
                        g_zg, g_h)
@@ -1500,6 +1517,10 @@ def deep(lde: torch.Tensor, h_lde: torch.Tensor, xs: torch.Tensor,
     d, k = g_h.shape
     if not 1 <= d <= 3:
         raise ValueError(f"deep: extension degree {d} not in 1..3")
+    if not (1 <= w <= DEEP_MAX_W and 1 <= k <= DEEP_MAX_K):
+        raise ValueError(f"deep: {w} trace and {k} composition columns, "
+                         f"the kernel takes 1..{DEEP_MAX_W} and "
+                         f"1..{DEEP_MAX_K}")
     lde_ld = _row_stride(lde, "deep lde", dev, w, S)
     if h_lde.device != dev or h_lde.dtype != torch.int64 or \
             tuple(h_lde.shape) != (d, k, S):

@@ -140,6 +140,9 @@ sys.path.insert(0, ROOT)
 # x 1.98 GHz boost clock.
 MEM_BYTES_PER_S = 3.35e12
 INT32_MUL_PER_S = 64 * 132 * 1.98e9
+# the int8 tensor cores, dense (NVIDIA data sheet; a multiply-add is two
+# operations)
+INT8_OPS_PER_S = 1979e12
 # 32-bit multiplies (the low or the high half of one 32x32 product) in the
 # least work known for each function. A Montgomery multiply: 8 for the four
 # partial products of the 64x64->128 product, 4 for the two word-level REDC
@@ -431,9 +434,12 @@ def plain_err(got, plain_of, n, per=1):
     return err
 
 
-def bound_ms(nbytes, muls):
+def bound_ms(nbytes, muls, int8_ops=0):
+    """The least time for nbytes of traffic, muls 32-bit integer
+    multiplies and int8_ops tensor-core operations: the largest of the
+    three times, and whether bytes or operations set it."""
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-    t_ops = muls / INT32_MUL_PER_S * 1e3
+    t_ops = max(muls / INT32_MUL_PER_S, int8_ops / INT8_OPS_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -626,10 +632,39 @@ def _hot_loop(instrs):
     return best
 
 
+def _mma_mix(instrs):
+    """Static counts of a kernel's integer tensor-core (IMMA) and
+    multiply-add (IMAD) instructions, and of the innermost loop with the
+    most IMMA: its instructions, IMMA, IMAD, PRMT and shared loads."""
+    ops = [re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0]
+           for _, ins in instrs]
+    mix = dict(imma=sum(o.startswith("IMMA") for o in ops),
+               imad=sum(o.startswith("IMAD") for o in ops))
+    loops = [(int(m.group(1), 16), addr) for addr, ins in instrs
+             for m in [re.search(r"\bBRA\s+(?:\S+\s+)?0x([0-9a-f]+)", ins)]
+             if m and int(m.group(1), 16) < addr]
+    inner = [(lo, hi) for lo, hi in loops
+             if not any(lo <= a and b <= hi and (a, b) != (lo, hi)
+                        for a, b in loops)]
+    for lo, hi in inner:
+        body = [re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0]
+                for addr, ins in instrs if lo <= addr <= hi]
+        loop = dict(instructions=len(body),
+                    imma=sum(o.startswith("IMMA") for o in body),
+                    imad=sum(o.startswith("IMAD") for o in body),
+                    prmt=sum(o.startswith("PRMT") for o in body),
+                    shared_loads=sum(o.startswith("LDS") for o in body))
+        if loop["imma"] > mix.get("loop", {}).get("imma", 0):
+            mix["loop"] = loop
+    return mix
+
+
 def phase_sass():
     """Static SASS instruction counts of every kernel, the Rescue kernels'
-    instructions per permutation (per thread x threads a state), and the
-    composition kernels' hottest loop (a run of FOLD_EVERY items)."""
+    instructions per permutation (per thread x threads a state), the
+    composition kernels' hottest loop (a run of FOLD_EVERY items), and the
+    tail's tensor-core kernels' IMMA and IMAD counts (`_mma_mix`; their
+    registers in the ptxas lines of phase_build and phase_tail)."""
     from certificate_stark_tpu_torch.ops import kernels as K
     out = {}
     for name, path in K.build().items():
@@ -654,6 +689,9 @@ def phase_sass():
                              f"{100 * imad / per_thread:.1f}% IMAD")
             if "compose_kernel" in func:
                 line += f"; hot loop {_hot_loop(instrs)}"
+            if re.search(r"(ood|deep)_kernelILi", func):
+                out[func] = _mma_mix(instrs)
+                line += f"; {out[func]}"
             log(line)
     return out
 
@@ -1655,12 +1693,14 @@ def profile_tx_proof(ex, prover, what):
                                 "compose", "rescue_perm",
                                 "ntt_pass_kernel<false",
                                 "ntt_pass_kernel<true", "ood_kernel",
-                                "ood_total_kernel", "deep_kernel",
+                                "ood_pow_kernel", "ood_total_kernel",
+                                "deep_kernel",
                                 "fri_fold_kernel")
                     if k in name), "PyTorch ops")
         key = {"ntt_pass_kernel<false": "ntt",
                "ntt_pass_kernel<true": "lde", "ood_kernel": "ood",
-               "ood_total_kernel": "ood", "deep_kernel": "deep",
+               "ood_pow_kernel": "ood", "ood_total_kernel": "ood",
+               "deep_kernel": "deep",
                "fri_fold_kernel": "fri_fold"}.get(key, key)
         gt, gc = groups.get(key, (0.0, 0))
         groups[key] = (gt + t, gc + c)
@@ -2499,34 +2539,49 @@ def phase_ntt(dev, shapes=None):
     return rows
 
 
-def _ood_cost(d, w, k, m):
-    """Bytes (the coefficients read once, the [d, 2w + k] values written)
-    and 32-bit multiplies of ood as the kernel sums: an index's 2 d w trace
-    products and d^2 k composition products into unreduced sums, and one
-    extension multiply an index and point for the powers (d = 1: a
-    Montgomery multiply; else d^2 products and 2d - 1 reductions)."""
-    ext = MULS_PER_MMUL if d == 1 else d * d * MULS_PER_MAC \
+def _ext_muls(d):
+    """32-bit multiplies of one extension multiply (d = 1: a Montgomery
+    multiply; else d^2 products summed unreduced, 2d - 1 reductions)."""
+    return MULS_PER_MMUL if d == 1 else d * d * MULS_PER_MAC \
         + (2 * d - 1) * MULS_PER_REDC
-    return (8 * (w + d * k) * m + 8 * d * (2 * w + k),
-            m * ((2 * d * w + d * d * k) * MULS_PER_MAC + 3 * ext))
 
 
-def _deep_cost(d, w, k, S):
-    """Bytes (a point's w trace and d k composition values and its x read,
-    d values written) and 32-bit multiplies of deep (a block's sums of the
-    OOD values, some d^2 (2 w + k) products, left out): a point's 2 d w +
-    d^2 k products into unreduced sums and their 4 d - 1 reductions (2 d
-    for the two trace sums, 2 d - 1 for the composition's), and 11
-    extension multiplies (three denominators' pair products and their
-    product, three numerator terms, and Montgomery's trick over the
-    domain: a prefix product, two on the way back, the quotient). The one
-    inversion the whole domain needs is left out; the kernel's one a run
-    of points is its own choice."""
-    ext = MULS_PER_MMUL if d == 1 else d * d * MULS_PER_MAC \
-        + (2 * d - 1) * MULS_PER_REDC
-    per = (2 * d * w + d * d * k) * MULS_PER_MAC \
-        + (4 * d - 1) * MULS_PER_REDC + 11 * ext
-    return 8 * S * (w + d * k + 1 + d), S * per
+def _ood_cost(d, w, k, m, old=False):
+    """(bytes, 32-bit multiplies, int8 tensor-core operations) of ood:
+    the coefficients read once and the [d, 2w + k] values written; an
+    index's 2 d w trace and d^2 k composition products as byte-sliced
+    exact integer products (8 x 8 byte products each, counted once, a
+    multiply-add two operations), and one extension multiply an index and
+    point for the powers on the CUDA cores. `old`: PR 18's count, every
+    product as MULS_PER_MAC 32-bit multiplies into an unreduced sum."""
+    prods = 2 * d * w + d * d * k
+    nbytes = 8 * (w + d * k) * m + 8 * d * (2 * w + k)
+    if old:
+        return nbytes, m * (prods * MULS_PER_MAC + 3 * _ext_muls(d)), 0
+    return nbytes, m * 3 * _ext_muls(d), m * prods * 64 * 2
+
+
+def _deep_cost(d, w, k, S, old=False):
+    """(bytes, 32-bit multiplies, int8 tensor-core operations) of deep:
+    a point's w trace and d k composition values and its x read, d values
+    written (a block's sums of the OOD values, some d^2 (2 w + k)
+    products, left out); a point's 2 d w + d^2 k products as byte-sliced
+    exact integer products (8 x 8 byte products each, counted once, a
+    multiply-add two operations); on the CUDA cores the 4 d - 1
+    reductions of the sums (2 d for the two trace sums, 2 d - 1 for the
+    composition's) and 11 extension multiplies (three denominators' pair
+    products and their product, three numerator terms, and Montgomery's
+    trick over the domain: a prefix product, two on the way back, the
+    quotient). The one inversion the whole domain needs is left out; the
+    kernel's one a run of points is its own choice. `old`: PR 18's count,
+    every product as MULS_PER_MAC 32-bit multiplies into an unreduced
+    sum."""
+    prods = 2 * d * w + d * d * k
+    epi = (4 * d - 1) * MULS_PER_REDC + 11 * _ext_muls(d)
+    nbytes = 8 * S * (w + d * k + 1 + d)
+    if old:
+        return nbytes, S * (prods * MULS_PER_MAC + epi), 0
+    return nbytes, S * epi, S * prods * 64 * 2
 
 
 def _fold_cost(d, fold, L):
@@ -2534,8 +2589,7 @@ def _fold_cost(d, fold, L):
     of fri_fold: a radix-2 fold is 2 d + 1 Montgomery multiplies and one
     extension multiply; fold 4 three of them, 1/x from one table product
     (and one more for the second pair, one squaring for x^2)."""
-    ext = MULS_PER_MMUL if d == 1 else d * d * MULS_PER_MAC \
-        + (2 * d - 1) * MULS_PER_REDC
+    ext = _ext_muls(d)
     halves = fold - 1
     per = halves * ((2 * d + 1) * MULS_PER_MMUL + ext) \
         + (MULS_PER_MMUL if fold == 2 else 3 * MULS_PER_MMUL + ext)
@@ -2631,21 +2685,22 @@ def phase_tail(dev, shapes=None):
     check(int(got[:, [5, 700, 4000]].abs().max()) == 0 and
           _tail_plain(K, "deep", args, {}, got) == 0,
           "deep: a zero denominator's point is not 0")
+    extra = _tail_limits(K, rand, dev)
     torch.cuda.synchronize()
     log(f"ood, deep, fri_fold == plain: {count['ood']}, {count['deep']} and "
         f"{count['fri_fold']} shapes ({len((shapes or {}).get('ood', ()))}, "
         f"{len((shapes or {}).get('deep', ()))} and "
         f"{len((shapes or {}).get('fri_fold', ()))} of them recorded on "
         f"the paths), bit for bit; deep's zero denominators give 0; "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{extra}; {time.perf_counter() - t0:.1f} s")
 
     rows = []
     for name, timed, cost, where, kern in (
-            ("ood", OOD_TIMED, lambda s: _ood_cost(*s[:4]),
+            ("ood", OOD_TIMED, lambda s, old=False: _ood_cost(*s[:4], old),
              "certificate_stark_tpu/engine/prover.py:748",
              ("ood_kernelILi1E", "ood_kernelILi2E", "ood_kernelILi3E",
-              "ood_total_kernel")),
-            ("deep", DEEP_TIMED, lambda s: _deep_cost(*s),
+              "ood_pow_kernelILi3E", "ood_total_kernelILi3E")),
+            ("deep", DEEP_TIMED, lambda s, old=False: _deep_cost(*s, old),
              "certificate_stark_tpu/engine/prover.py:802",
              ("deep_kernelILi1E", "deep_kernelILi2E", "deep_kernelILi3E")),
             ("fri_fold", FOLD_TIMED, lambda s: _fold_cost(*s[:3]),
@@ -2665,6 +2720,9 @@ def phase_tail(dev, shapes=None):
             bnd, by = bound_ms(*cost(shape))
             entry = dict(shape=list(shape), ms=ms, device_ms=dev_ms,
                          bound_ms=bnd, bound_by=by)
+            if name != "fri_fold":   # PR 18's count, for its shares
+                entry["bound_ms_old"], entry["bound_by_old"] = bound_ms(
+                    *cost(shape, True))
             if shape == timed[0]:
                 torch.cuda.empty_cache()
                 _plain_timed(call)
@@ -2673,6 +2731,9 @@ def phase_tail(dev, shapes=None):
             log(f"{name} {shape}: a call {ms:.4f} ms, device {dev_ms:.4f} ms "
                 f"(a CUDA graph of 10), bound {bnd:.4f} ms ({by}; "
                 f"{100 * bnd / ms:.1f}% of a call)"
+                + (f", PR 18's bound {entry['bound_ms_old']:.4f} ms "
+                   f"({entry['bound_by_old']})"
+                   if "bound_ms_old" in entry else "")
                 + (f", plain {entry['plain_ms']:.1f} ms"
                    if "plain_ms" in entry else ""))
             del args, kw, call
@@ -2689,6 +2750,58 @@ def phase_tail(dev, shapes=None):
                                    "bound_by")},
             ms_by_shape=by_shape, checks=count[name], ptxas=uses, **use))
     return rows
+
+
+def _tail_limits(K, rand, dev):
+    """ood and deep on every value p - 1 at the 1024-transaction shapes,
+    deep at the widest trace and composition it takes (K.DEEP_MAX_W,
+    K.DEEP_MAX_K, d = 3) and ood as wide, on random values, on p - 1 and
+    on the canonical value with the most bytes 0xFF (the largest sums of
+    byte products), all bit for bit against their plain versions; deep
+    refusing one column more of either. Returns a line for the log."""
+    def full(v):
+        return lambda *shape: torch.full(shape, v, dtype=torch.int64,
+                                         device=dev)
+    worst = full(K.P - 1)
+    checks = 0
+    for d in (1, 3):
+        m = 1 << 20
+        args = (worst(TAIL_W, m), worst(d, TAIL_K, m), rand(d, 3), 0)
+        e = _tail_plain(K, "ood", args, {}, K.ood(*args))
+        check(e == 0, f"ood differs from its plain version on p - 1, d {d}")
+        args = (worst(TAIL_W, m), worst(d, TAIL_K, m), rand(m), rand(d, 3),
+                rand(d, TAIL_W), rand(d, TAIL_W), rand(d, TAIL_K),
+                worst(d, TAIL_W), worst(d, TAIL_W), worst(d, TAIL_K))
+        e = max(e, _tail_plain(K, "deep", args, {}, K.deep(*args)))
+        check(e == 0, f"deep differs from its plain version on p - 1, "
+              f"d {d}")
+        checks += 2
+        del args
+    W, Kc, S = K.DEEP_MAX_W, K.DEEP_MAX_K, 1 << 14
+    for fill in (rand, worst, full(0x40FFFFFFFFFFFFFF)):
+        args = (fill(W, S), fill(3, Kc, S), rand(S), rand(3, 3),
+                rand(3, W), rand(3, W), rand(3, Kc), fill(3, W), fill(3, W),
+                fill(3, Kc))
+        e = _tail_plain(K, "deep", args, {}, K.deep(*args))
+        check(e == 0, f"deep differs from its plain version at w = {W}, "
+              f"k = {Kc}")
+        args = (fill(W, S), fill(3, Kc, S), rand(3, 3), 5)
+        e = max(e, _tail_plain(K, "ood", args, {}, K.ood(*args)))
+        check(e == 0, f"ood differs from its plain version at w = {W}, "
+              f"k = {Kc}")
+        checks += 2
+    for w, k in ((W + 1, Kc), (W, Kc + 1)):
+        args = (rand(w, 64), rand(3, k, 64), rand(64), rand(3, 3),
+                rand(3, w), rand(3, w), rand(3, k), rand(3, w), rand(3, w),
+                rand(3, k))
+        try:
+            K.deep(*args)
+        except ValueError:
+            continue
+        check(False, f"deep took w = {w}, k = {k}")
+    return (f"p - 1, the most bytes 0xFF and w = {W}, k = {Kc}: {checks} "
+            f"checks, "
+            f"bit for bit; deep refuses w = {W + 1} and k = {Kc + 1}")
 
 
 @contextlib.contextmanager
