@@ -10,8 +10,8 @@
 //             + sum_j g_h,j (H_j(x) - H_j(z^k)) / (x - z^k) on a domain
 //             segment (a block first sums sum_j g_j f_j(p) at the three
 //             points, the terms that do not depend on x);
-//   fri_fold  one FRI layer's fold by 2, or by 4 as two radix-2 folds with
-//             xi and xi^2, in registers.
+//   fri_fold  one FRI layer's fold by 2 or 4 in registers, written as the
+//             folded values or straight into the next layer's leaf rows.
 //
 // Replace certificate_stark_tpu/engine/prover.py `phase_ood` (:748),
 // `_deep_pointwise` (:802, with `phase_deep` :829) and `fold_kernel`
@@ -43,8 +43,12 @@
 //   base-field inversion a run (66 squarings, 16 multiplies). A zero
 //   denominator is replaced by 1 before the product and its point written
 //   0, the rule of F.batch_inv;
-// - fri_fold reads fold d values and writes d a point: bytes bound it.
-//   1/x comes from a split table (lo[e mod 2^h] hi[e >> h] = (o w^e)^-1).
+// - fri_fold reads fold d values and writes d a point: bytes bound it at
+//   every d by the count of multiplies (4 d + 3 Montgomery multiplies and
+//   three extension multiplies by constants a point at fold 4), but at
+//   d = 3 its integer instructions a point take longer, issued at the
+//   multiply rate. 1/x comes from a split table (lo[e mod 2^h] hi[e >> h]
+//   = (o w^e)^-1).
 //
 // Byte-sliced products. A sum V = sum_K u_K v_K of canonical values (each
 // below p < 2^63, its top byte at most 0x41) is the exact integer
@@ -1172,95 +1176,206 @@ extern "C" int deep_launch(const void* lde, long long lde_ld, const void* h,
 }
 
 // ---- fri_fold --------------------------------------------------------------
+// One FRI layer's fold. Point j's FOLD values v_t sit at x w^(t step) (w^step
+// = -1 for FOLD 2, the fourth root i for FOLD 4); with 1/x from the split
+// table, the fold is
+//   FOLD 2: o = [(v0 + v1) + xi (v0 - v1) / x] / 2,
+//   FOLD 4: A = (v0 + v2) + xi (v0 - v2) / x,
+//           B = (v1 + v3) + xi (v1 - v3) / (x w^step),
+//           o = [(A + B) + xi^2 (A - B) / x^2] / 4:
+// engine/fri.py's radix-2 folds (a + b) / 2 + xi (a - b) / (2x), the second
+// with xi^2 at x^2, with their halvings merged into one 1/FOLD. A point
+// costs 2 d + 1 Montgomery multiplies and one extension multiply at FOLD 2,
+// 4 d + 3 and three at FOLD 4 (radix-2 folds in turn take 2 d + 2 and
+// 6 d + 6 with four). xi and xi^2 are worked out once a layer on the host
+// and come by value; a thread builds their multiplication matrices once
+// (additions only), so that a product by either is d sums of d products,
+// each reduced once (ext_mul's 2 d - 1 reductions and its combination by
+// x^d fall away). A thread takes one point a round (8-byte loads and
+// stores), over a grid of at most the resident blocks: at d = 3, 48
+// registers leave 5 blocks of 256 threads an SM resident. Two adjacent
+// points a thread with 16-byte loads took 74 registers (3 blocks) at
+// d = 3, fold 4 and ran 5-12% slower there, alike at d = 1 (PERF.md).
+//
+// The output: coordinate e of point j at out[(r D + e) m + c], r = j >>
+// m_log, c = j mod 2^m_log. With m = L and m_log = 63 that is [D, L]; with
+// m = L / f = 2^m_log it is the next layer's leaf rows [f, D, L / f]
+// (engine/fri.py leaf_rows of the [D, L] values, folding f), which that
+// layer commits and folds from without a copy.
 struct FoldArgs {
     const u64* src;  // value t, coordinate e of point j: src[t ld_t + e ld_e
     long long ld_t, ld_e;  // + j]
     long long L, j0;  // points; the first one's position in the layer
     const u64 *lo, *hi;  // (o w^e)^-1 = lo[e mod 2^h] hi[e >> h]
     int h;
-    u64 step_inv;  // w^-step: 1/x at position e + step from 1/x at e
-    u64 inv2;      // 1/2
-    const u64* xi;  // [D]
-    u64* out;       // [D, L]
+    int m_log;       // the output's row: point j in row j >> m_log
+    long long m;     // the output's row length
+    u64 step_inv;    // w^-step: 1/x at position e + step from 1/x at e
+    u64 scale;       // 1 / FOLD
+    u64 xi[3], xi2[3];  // the folding scalar and its square, by value
+    u64* out;
 };
 
-// The radix-2 fold (a + b) / 2 + xi (a - b) / (2x) of the values a at x
-// and b at -x, with hx = 1 / (2x).
+// The multiplication matrix of a (D x D, row-major): column i holds the
+// coordinates of a x^i, so that (a t)_e = sum_i m[e D + i] t_i; x^2 = 3,
+// or x^3 = 3 x + 1 (ext_combine).
 template <int D>
-__device__ __forceinline__ void fold_half(const u64 (&a)[D], const u64 (&b)[D],
-                                          u64 hx, const u64 (&xi)[D],
-                                          u64 inv2, u64 (&o)[D]) {
+__device__ __forceinline__ void ext_matrix(const u64* a, u64 (&m)[D * D]) {
+    if constexpr (D == 1) {
+        m[0] = a[0];
+    } else if constexpr (D == 2) {
+        m[0] = a[0];
+        m[1] = mtriple(a[1]);
+        m[2] = a[1];
+        m[3] = a[0];
+    } else {
+        const u64 b1 = f63_add(a[0], mtriple(a[2]));  // a x = (a2, b1, a1)
+        m[0] = a[0], m[1] = a[2], m[2] = a[1];
+        m[3] = a[1], m[4] = b1, m[5] = f63_add(a[2], mtriple(a[1]));
+        m[6] = a[2], m[7] = a[1], m[8] = b1;
+    }
+}
+
+// c = a t for the constant a given as its matrix m; c may be t.
+template <int D>
+__device__ __forceinline__ void ext_mul_mat(const u64 (&t)[D],
+                                            const u64 (&m)[D * D],
+                                            u64 (&c)[D]) {
+    if constexpr (D == 1) {
+        c[0] = f63_mmul(t[0], m[0]);
+    } else {
+        u64 r[D];
+#pragma unroll
+        for (int e = 0; e < D; e++) {
+            Wide s;  // D <= FOLD_EVERY products: no fold
+            wide_zero(s);
+#pragma unroll
+            for (int i = 0; i < D; i++) wide_mac(s, t[i], m[e * D + i]);
+            r[e] = wide_redc(s);
+        }
+#pragma unroll
+        for (int e = 0; e < D; e++) c[e] = r[e];
+    }
+}
+
+template <int D, int FOLD>
+__device__ __forceinline__ void fold_point(const u64 (&v)[FOLD][D], u64 ix,
+                                           const FoldArgs& p,
+                                           const u64 (&m1)[D * D],
+                                           const u64 (&m2)[D * D],
+                                           u64 (&o)[D]) {
     u64 t[D];
 #pragma unroll
-    for (int e = 0; e < D; e++) t[e] = f63_mmul(msub(a[e], b[e]), hx);
-    ext_mul<D>(t, xi, t);
-#pragma unroll
     for (int e = 0; e < D; e++)
-        o[e] = f63_add(f63_mmul(f63_add(a[e], b[e]), inv2), t[e]);
+        t[e] = f63_mmul(msub(v[0][e], v[FOLD / 2][e]), ix);
+    ext_mul_mat<D>(t, m1, t);
+    if constexpr (FOLD == 2) {
+#pragma unroll
+        for (int e = 0; e < D; e++)
+            o[e] = f63_mmul(f63_add(f63_add(v[0][e], v[1][e]), t[e]),
+                            p.scale);
+    } else {
+        u64 a[D], b[D];
+#pragma unroll
+        for (int e = 0; e < D; e++)
+            a[e] = f63_add(f63_add(v[0][e], v[2][e]), t[e]);
+        const u64 ix1 = f63_mmul(ix, p.step_inv);  // 1 / (x w^step)
+#pragma unroll
+        for (int e = 0; e < D; e++)
+            t[e] = f63_mmul(msub(v[1][e], v[3][e]), ix1);
+        ext_mul_mat<D>(t, m1, t);
+#pragma unroll
+        for (int e = 0; e < D; e++)
+            b[e] = f63_add(f63_add(v[1][e], v[3][e]), t[e]);
+        const u64 ix2 = f63_msqr(ix);  // 1 / x^2
+#pragma unroll
+        for (int e = 0; e < D; e++) t[e] = f63_mmul(msub(a[e], b[e]), ix2);
+        ext_mul_mat<D>(t, m2, t);
+#pragma unroll
+        for (int e = 0; e < D; e++)
+            o[e] = f63_mmul(f63_add(f63_add(a[e], b[e]), t[e]), p.scale);
+    }
 }
 
 template <int D, int FOLD>
 __global__ void __launch_bounds__(FOLD_THREADS)
 fri_fold_kernel(const __grid_constant__ FoldArgs p) {
-    const long long j = (long long)blockIdx.x * FOLD_THREADS + threadIdx.x;
-    if (j >= p.L) return;
-    u64 xi[D], v[FOLD][D];
+    const unsigned long long tmask = (1ull << p.h) - 1,
+                             cmask = (1ull << p.m_log) - 1;
+    u64 m1[D * D], m2[D * D];
+    ext_matrix<D>(p.xi, m1);
+    ext_matrix<D>(p.xi2, m2);
+    for (long long j = (long long)blockIdx.x * FOLD_THREADS + threadIdx.x;
+         j < p.L; j += (long long)gridDim.x * FOLD_THREADS) {
+        u64 v[FOLD][D];
 #pragma unroll
-    for (int e = 0; e < D; e++) xi[e] = __ldg(p.xi + e);
+        for (int t = 0; t < FOLD; t++)
 #pragma unroll
-    for (int t = 0; t < FOLD; t++)
+            for (int e = 0; e < D; e++)
+                v[t][e] = __ldg(p.src + t * p.ld_t + e * p.ld_e + j);
+        const unsigned long long pos = (unsigned long long)(p.j0 + j);
+        const u64 ix = f63_mmul(__ldg(p.lo + (pos & tmask)),
+                                __ldg(p.hi + (pos >> p.h)));  // 1 / x
+        u64 o[D];
+        fold_point<D, FOLD>(v, ix, p, m1, m2, o);
+        u64* dst = p.out + (long long)(((unsigned long long)j >> p.m_log) *
+                                       D) * p.m +
+                   (long long)((unsigned long long)j & cmask);
 #pragma unroll
-        for (int e = 0; e < D; e++)
-            v[t][e] = __ldg(p.src + t * p.ld_t + e * p.ld_e + j);
-    const unsigned long long pos = (unsigned long long)(p.j0 + j);
-    const u64 ix = f63_mmul(__ldg(p.lo + (pos & ((1ull << p.h) - 1))),
-                            __ldg(p.hi + (pos >> p.h)));  // 1 / x
-    u64 o[D];
-    if constexpr (FOLD == 2) {
-        fold_half<D>(v[0], v[1], f63_mmul(ix, p.inv2), xi, p.inv2, o);
-    } else {
-        // values t and t + 2 at the positions j and j + step, then the two
-        // folded values at x^2, with xi^2
-        u64 g0[D], g1[D], xi2[D];
-        fold_half<D>(v[0], v[2], f63_mmul(ix, p.inv2), xi, p.inv2, g0);
-        fold_half<D>(v[1], v[3], f63_mmul(f63_mmul(ix, p.step_inv), p.inv2),
-                     xi, p.inv2, g1);
-        ext_mul<D>(xi, xi, xi2);
-        fold_half<D>(g0, g1, f63_mmul(f63_msqr(ix), p.inv2), xi2, p.inv2, o);
+        for (int e = 0; e < D; e++) dst[e * p.m] = o[e];
     }
-#pragma unroll
-    for (int e = 0; e < D; e++) p.out[e * p.L + j] = o[e];
+}
+
+template <int D, int FOLD>
+static int fold_run(const FoldArgs& p, cudaStream_t st) {
+    static long long cap = 0;  // the resident blocks, once a process
+    if (cap == 0) {
+        int per_sm = 0;
+        const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, fri_fold_kernel<D, FOLD>, FOLD_THREADS, 0);
+        if (e != cudaSuccess) return (int)e;
+        cap = (long long)sm_count() * (per_sm > 0 ? per_sm : 1);
+    }
+    const long long need = (p.L + FOLD_THREADS - 1) / FOLD_THREADS;
+    fri_fold_kernel<D, FOLD>
+        <<<(int)(need < cap ? need : cap), FOLD_THREADS, 0, st>>>(p);
+    return (int)cudaGetLastError();
 }
 
 template <int D>
-static int fold_run(const FoldArgs& p, int fold, cudaStream_t st) {
-    const int blocks = (int)((p.L + FOLD_THREADS - 1) / FOLD_THREADS);
-    if (fold == 2)
-        fri_fold_kernel<D, 2><<<blocks, FOLD_THREADS, 0, st>>>(p);
-    else if (fold == 4)
-        fri_fold_kernel<D, 4><<<blocks, FOLD_THREADS, 0, st>>>(p);
-    else
-        return (int)cudaErrorInvalidValue;
-    return (int)cudaGetLastError();
+static int fold_pick(const FoldArgs& p, int fold, cudaStream_t st) {
+    if (fold == 2) return fold_run<D, 2>(p, st);
+    if (fold == 4) return fold_run<D, 4>(p, st);
+    return (int)cudaErrorInvalidValue;
 }
 
 // src: value t, coordinate e of point j at src[t ld_t + e ld_e + j] (t <
 // fold, e < d, j < L); the points' positions j0 + j + t step in the
 // layer, whose 1/x is lo[e mod 2^h] hi[e >> h]; step_inv = w^-step and
-// inv2 Montgomery; xi [d]; out [d, L].
+// scale = 1/fold Montgomery; xi, xi2: the folding scalar and its square,
+// d Montgomery coordinates each (host memory, passed to the kernel by
+// value); out: point j, coordinate e at out[((j >> m_log) d + e) m +
+// (j mod 2^m_log)] (m = L, m_log = 63: [d, L]).
 extern "C" int fri_fold_launch(const void* src, long long ld_t,
                                long long ld_e, long long L, long long j0,
                                const void* lo, const void* hi, int h,
-                               long long step_inv, long long inv2,
-                               const void* xi, int d, int fold, void* out,
+                               long long step_inv, long long scale,
+                               const unsigned long long* xi,
+                               const unsigned long long* xi2, int d,
+                               int fold, void* out, long long m, int m_log,
                                void* stream) {
     if (L <= 0) return 0;
-    const FoldArgs p = {(const u64*)src, ld_t, ld_e, L, j0, (const u64*)lo,
-                        (const u64*)hi, h, (u64)step_inv, (u64)inv2,
-                        (const u64*)xi, (u64*)out};
+    if (d < 1 || d > 3 || m_log < 0 || m_log > 63)
+        return (int)cudaErrorInvalidValue;
+    FoldArgs p = {(const u64*)src, ld_t, ld_e, L, j0, (const u64*)lo,
+                  (const u64*)hi, h, m_log, m, (u64)step_inv, (u64)scale,
+                  {}, {}, (u64*)out};
+    for (int e = 0; e < d; e++) {
+        p.xi[e] = xi[e];
+        p.xi2[e] = xi2[e];
+    }
     const cudaStream_t st = (cudaStream_t)stream;
-    if (d == 1) return fold_run<1>(p, fold, st);
-    if (d == 2) return fold_run<2>(p, fold, st);
-    if (d == 3) return fold_run<3>(p, fold, st);
-    return (int)cudaErrorInvalidValue;
+    if (d == 1) return fold_pick<1>(p, fold, st);
+    if (d == 2) return fold_pick<2>(p, fold, st);
+    return fold_pick<3>(p, fold, st);
 }

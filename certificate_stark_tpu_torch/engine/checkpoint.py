@@ -24,17 +24,20 @@ import os
 import numpy as np
 import torch
 
+from ..utils import device as DV
+
 FORMAT = "certificate_stark_tpu_torch/int64-montgomery/1"
 
 
 class Checkpointer:
     """Directory-backed phase checkpoint store for one proving context
     (any JSON-serializable description: AIR, shape, options, public
-    inputs, hasher)."""
+    inputs, hasher). `load` puts the tensors on `device`: the card unless
+    the caller names the CPU."""
 
-    def __init__(self, directory: str, context=None, device="cpu"):
+    def __init__(self, directory: str, context=None, device=None):
         self.dir = directory
-        self.device = torch.device(device)
+        self.device = DV.resolve(device)
         os.makedirs(directory, exist_ok=True)
         ctx_bytes = json.dumps([FORMAT, context], sort_keys=True,
                                default=int).encode()

@@ -8,12 +8,16 @@ scalar xi an extension element. One radix-2 fold:
     E'(x^2) = (E(x) + E(-x))/2 + xi * (E(x) - E(-x)) / (2x)
 
 On a domain o*<w> the -x partner of index j is j + n/2. A fold by 4 is two
-radix-2 folds, with xi and xi^2: `fold` is one launch of the fri_fold
-kernel (ops/kernels.py), whose plain version takes its steps from
-`inv_xs_table` (1/x from an inverse-powers table) and `fold_halves`. Layer
-leaves group the `fold` positions that fold together, element-major: leaf
-j holds the d coordinates of the value at j, then of the value at j +
-n/fold, j + 2n/fold, ...
+radix-2 folds, with xi and xi^2. Layer leaves group the `fold` positions
+that fold together, element-major: leaf j holds the d coordinates of the
+value at j, then of the value at j + n/fold, j + 2n/fold, ... (the JAX
+package's `commit_kernel`): `leaf_rows`. Only the first layer's rows are
+made by it, from the DEEP values; `fold` is one launch of the fri_fold
+kernel (ops/kernels.py), which reads a layer's rows and writes the next
+layer's rows itself, or, at the last layer, the remainder's values. Its
+plain version takes its steps from `inv_xs_table` (1/x from an
+inverse-powers table) and `fold_halves`. `plan` works out each layer's
+constants once a prover.
 """
 from __future__ import annotations
 
@@ -38,12 +42,24 @@ def fold_halves(e0, e1, inv_x, xi):
                                d))
 
 
-def fold(evals, xi, offset: int, gen: int, folding: int):
-    """Fold [d, n] by 2, or by 4 as two radix-2 folds with xi and xi^2:
-    one fri_fold launch on the values at j + t n/folding."""
-    d, n = evals.shape
-    return K.fri_fold(evals.reshape(d, folding, n // folding)
-                      .transpose(0, 1), xi, offset, gen)
+def plan(size: int, offset: int, gen: int, opts, device) -> list:
+    """The FRI layers of a domain of `size` points on offset * <gen>, down
+    to opts.fri_max_remainder values: a K.FoldLayer each."""
+    fold, out = opts.fri_folding, []
+    while size > opts.fri_max_remainder:
+        out.append(K.FoldLayer(offset, gen, size, fold, device))
+        size //= fold
+        offset, gen = pow(offset, fold, F.P), pow(gen, fold, F.P)
+    return out
+
+
+def fold(rows, xi, layer, out_fold: int = 0):
+    """Fold a layer from its leaf rows [fold d, n/fold] (`layer` its
+    K.FoldLayer, xi the coin's d ints): one fri_fold launch -> the next
+    layer's leaf rows [out_fold d, n/(fold out_fold)], or with out_fold 0
+    its values [d, n/fold]."""
+    return K.fri_fold(rows.reshape(layer.fold, -1, rows.shape[-1]), xi,
+                      layer, out_fold=out_fold)
 
 
 def leaf_rows(evals, folding: int):

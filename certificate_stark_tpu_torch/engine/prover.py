@@ -106,6 +106,8 @@ class Prover:
             for adj in sorted(set(self.t_adjs)
                               | {g.adj for g in self.b_tables})}
         self.comp_tabs = self._compose_tables()
+        # each FRI layer's fold constants
+        self.fri_plan = FRI.plan(bn, offset, gen_big, opts, dev)
         # the transaction AIR's evaluation is the transaction_eval kernel;
         # every other AIR's its own evaluate_transition
         self.eval_consts = (
@@ -281,33 +283,37 @@ class Prover:
         return XF.from_ints([coin.draw_ext(self.d) for _ in range(count)],
                             self.d, self.device)
 
-    def _fri_layers(self, coin, cur, ck):
+    def _fri_layers(self, coin, cur, ck, first: int = 0):
         """The FRI commit phase on the DEEP values cur [d, bn]: a layer's
         leaf rows committed, the coin reseeded with its root and the
         folding scalar drawn, until at most fri_max_remainder values are
-        left -> (layers, the remainder [d, size])."""
-        opts, hasher = self.opts, self.hasher
-        fri_layers = []
-        size, o, gw = self.bn, self.offset, self.gen_big
-        fold = opts.fri_folding
-        while size > opts.fri_max_remainder:
-            key = f"fri{len(fri_layers)}"
+        left -> (layers, the remainder [d, size]). Only the first layer's
+        rows are copied from cur; each fold writes the next layer's rows
+        itself, the last one the remainder, so a layer is held once.
+        From layer `first` on, with cur that layer's whole values (the
+        sharded prover's layers that every rank folds alike)."""
+        hasher, fold = self.hasher, self.opts.fri_folding
+        fri_layers, rows = [], None
+        for i in range(first, len(self.fri_plan)):
+            layer = self.fri_plan[i]
+            key = f"fri{i}"
             data = ck.load(key) if ck else None
             if data is not None:
                 rows = data["group"]
                 tree = M.MerkleTree(hasher, ck.unpack_levels(data))
             else:
-                rows = FRI.leaf_rows(cur, fold)
-                tree = self.commit(rows)
+                if rows is None:
+                    rows = FRI.leaf_rows(cur, fold)
+                tree = Prover.commit(self, rows)   # whole rows, one holder
                 if ck:
                     ck.save_levels(key, {"group": rows}, tree.levels)
             coin.reseed(tree.root())
-            xi = F.from_ints(coin.draw_ext(self.d), self.device)
-            cur = FRI.fold(cur, xi, o, gw, fold)
-            fri_layers.append(FRI.FriLayer(tree, size, o, gw, rows))
-            size //= fold
-            o = pow(o, fold, F.P)
-            gw = pow(gw, fold, F.P)
+            last = i + 1 == len(self.fri_plan)
+            out = FRI.fold(rows, coin.draw_ext(self.d), layer,
+                           0 if last else fold)
+            fri_layers.append(FRI.FriLayer(tree, layer.size, layer.offset,
+                                           layer.gen, rows))
+            rows, cur = (None, out) if last else (out, None)
         return fri_layers, cur
 
     def _grind(self, coin):

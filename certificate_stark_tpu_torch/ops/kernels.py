@@ -60,6 +60,7 @@ import functools
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 
 import torch
@@ -634,15 +635,16 @@ _ENTRY_POINTS = {
     # strides, k; pts, s, m, d, scratch and its blocks' rows, out, stream.
     # deep: lde, its row stride; h and its two strides; xs, pts, ood_z,
     # ood_zg, ood_h, g_z, g_zg, g_h, w, k, d, S, out, its row stride,
-    # stream. fri_fold: src,
-    # its value and coordinate strides, L, j0, lo, hi, h, step_inv, inv2,
-    # xi, d, fold, out, stream
+    # stream. fri_fold: src, its value and coordinate strides, L, j0, lo,
+    # hi, h, step_inv, scale, xi and xi^2 (packed host bytes), d, fold,
+    # out, its row length and log2, stream
     "deep": {"ood_launch": [_vp, _ll, _int, _vp, _ll, _ll, _int, _vp, _ll,
                             _ll, _int, _vp, _ll, _vp, _vp],
              "deep_launch": [_vp, _ll, _vp, _ll, _ll] + [_vp] * 8
              + [_int] * 3 + [_ll, _vp, _ll, _vp],
              "fri_fold_launch": [_vp, _ll, _ll, _ll, _ll, _vp, _vp, _int,
-                                 _ll, _ll, _vp, _int, _int, _vp, _vp]},
+                                 _ll, _ll, ctypes.c_char_p, ctypes.c_char_p,
+                                 _int, _int, _vp, _ll, _int, _vp]},
 }
 
 
@@ -1558,78 +1560,132 @@ deep.launches = 0
 deep.shapes = set()
 
 
-@functools.lru_cache(maxsize=64)
-def fold_tables(offset: int, gen: int, size: int, device: str):
-    """1/x of the FRI layer's points x = offset gen^e (e < size), split in
-    two, and gen^-1: (lo, hi, h, gen^-1) with (offset gen^e)^-1 =
-    lo[e mod 2^h] hi[e >> h], Montgomery (gen^-1 a standard-form int);
-    cached."""
-    w_inv = pow(gen, P - 2, P)
-    return _split_table(w_inv, _log2(size, "fri_fold size"), device,
-                        pow(offset, P - 2, P)) + (w_inv,)
+class FoldLayer:
+    """One FRI layer's fold constants, worked out once (a Prover keeps one
+    a layer, as the JAX package's `_build_fri_kernels` keeps a fold kernel
+    a layer): the layer of `size` points on the domain offset * <gen>,
+    folded by `fold` (2 or 4), value t of an output point j at position
+    j + t step (step = size / fold); 1/x of its points split in two, (lo,
+    hi, h) with (offset gen^e)^-1 = lo[e mod 2^h] hi[e >> h], gen^-step and
+    1/fold, Montgomery, on `device`."""
+
+    def __init__(self, offset: int, gen: int, size: int, fold: int,
+                 device):
+        if fold not in (2, 4) or size % fold:
+            raise ValueError(f"FoldLayer: fold {fold} of {size} points")
+        self.offset, self.gen, self.size, self.fold = offset % P, gen % P, \
+            size, fold
+        self.step = size // fold
+        w_inv = pow(self.gen, P - 2, P)
+        self.lo, self.hi, self.h = _split_table(
+            w_inv, _log2(size, "FoldLayer size"), device,
+            pow(self.offset, P - 2, P))
+        self.device = self.lo.device
+        self.step_inv = _mont(pow(w_inv, self.step, P))
+        self.scale = _mont(pow(fold, P - 2, P))
 
 
-def fri_fold_plain(groups, xi, offset: int, gen: int, j0: int = 0,
-                   step=None):
+def _fold_out(fold: int, d: int, L: int, out_fold: int):
+    """The fold's output geometry: (shape, row length m, log2 of the rows'
+    points m_log); [d, L] with m = L, m_log = 63, or the next layer's leaf
+    rows [out_fold d, L / out_fold] (engine/fri.py leaf_rows)."""
+    if not out_fold:
+        return (d, L), L, 63
+    m = L // out_fold if out_fold in (2, 4) and L % out_fold == 0 else 0
+    if m < 1 or m & (m - 1):
+        raise ValueError(f"fri_fold: {L} points into leaf rows of folding "
+                         f"{out_fold}")
+    return (out_fold * d, m), m, m.bit_length() - 1
+
+
+def _xi_ints(xi, d: int) -> list:
+    """The folding scalar's d coordinates (standard-form ints, as the coin
+    draws them), checked."""
+    xi = [int(v) % P for v in xi]
+    if len(xi) != d:
+        raise ValueError(f"fri_fold: xi of {len(xi)} coordinates, "
+                         f"expected {d}")
+    return xi
+
+
+def _fold_scalars(xi: list, d: int):
+    """The kernel's xi and xi^2 from the coin's d standard-form ints:
+    Montgomery, three words each, packed for the launch."""
+    from .extfield import host_ext_mul
+
+    def pack(a):
+        return struct.pack("<3Q", *[(v << 64) % P for v in a],
+                           *[0] * (3 - d))
+    return pack(xi), pack(host_ext_mul(xi, xi, d))
+
+
+def fri_fold_plain(groups, xi, layer: FoldLayer, j0: int = 0,
+                   out_fold: int = 0):
     """Plain PyTorch fri_fold: radix-2 folds of the values t and t + h of
-    the groups (engine/fri.py fold_halves) with 1/x from
-    engine/fri.py inv_xs_table at the positions j0 + j + t step."""
+    the groups (engine/fri.py fold_halves), then of the results with xi^2,
+    1/x from engine/fri.py inv_xs_table at the positions j0 + j + t step;
+    with out_fold, engine/fri.py leaf_rows of the result."""
     from ..engine import fri as FRI
-    from . import extfield as XF
+    from . import extfield as XF, field as F
     fold, d, L = groups.shape
-    step = L if step is None else step
+    _fold_out(fold, d, L, out_fold)
+    xi = F.from_ints(_xi_ints(xi, d), groups.device)
     g = groups.transpose(0, 1)                             # [d, fold, L]
-    o, gw = offset % P, gen % P
+    o, gw = layer.offset, layer.gen
     while g.shape[1] > 1:
         h = g.shape[1] // 2
         inv_x = torch.stack([
-            FRI.inv_xs_table(o * pow(gw, j0 + t * step, P) % P, gw, L,
+            FRI.inv_xs_table(o * pow(gw, j0 + t * layer.step, P) % P, gw, L,
                              groups.device) for t in range(h)])  # [h, L]
         g = FRI.fold_halves(g[:, :h], g[:, h:], inv_x, xi)
         xi = XF.ext_mul(xi[:, None], xi[:, None], d)[:, 0]
         o, gw = o * o % P, gw * gw % P
-    return g[:, 0]
+    return FRI.leaf_rows(g[:, 0], out_fold) if out_fold else g[:, 0]
 
 
-def fri_fold(groups: torch.Tensor, xi: torch.Tensor, offset: int, gen: int,
-             j0: int = 0, step=None) -> torch.Tensor:
-    """One FRI layer's fold of the values groups [fold, d, L] (fold 2 or
-    4; a view whose points are contiguous): value t of point j sits at the
-    layer's position j0 + j + t step (step = L by default, the whole
-    layer), on the domain offset * <gen> of fold step points. Radix-2
-    folds of the values t and t + fold/2 with the extension scalar xi [d],
-    then (fold 4) of the two results with xi^2 -> [d, L]. The plain
+def fri_fold(groups: torch.Tensor, xi, layer: FoldLayer, j0: int = 0,
+             out_fold: int = 0) -> torch.Tensor:
+    """One FRI layer's fold of the values groups [fold, d, L] (a view whose
+    points are contiguous; `layer` the FoldLayer of its layer): value t of
+    point j sits at the layer's position j0 + j + t layer.step. Radix-2
+    folds of the values t and t + fold/2 with the extension scalar xi
+    (its d standard-form ints, as the coin draws it), then (fold 4) of the
+    two results with xi^2. Returns [d, L], or with out_fold (2 or 4) the
+    next layer's leaf rows [out_fold d, L / out_fold] (engine/fri.py
+    leaf_rows of those values), written by the kernel itself. The plain
     version for a CPU tensor or inside plain_versions(). `fri_fold.shapes`
     keeps every (d, fold, L, layer size, j0) launched in this process."""
     if use_plain(groups):
-        return fri_fold_plain(groups, xi, offset, gen, j0, step)
+        return fri_fold_plain(groups, xi, layer, j0, out_fold)
     dev = _launch_device(groups, "fri_fold")
     if groups.dim() != 3 or groups.dtype != torch.int64:
         raise ValueError(f"fri_fold: groups {tuple(groups.shape)} "
                          f"{groups.dtype}, expected int64 (fold, d, L)")
     fold, d, L = groups.shape
-    step = L if step is None else step
-    if fold not in (2, 4) or not 1 <= d <= 3:
-        raise ValueError(f"fri_fold: fold {fold}, degree {d}")
+    if fold != layer.fold or not 1 <= d <= 3:
+        raise ValueError(f"fri_fold: fold {fold} (the layer's "
+                         f"{layer.fold}), degree {d}")
     if L > 1 and groups.stride(2) != 1:
         raise ValueError("fri_fold: the points are not contiguous")
-    if j0 < 0 or j0 + L > step:
+    if j0 < 0 or j0 + L > layer.step:
         raise ValueError(f"fri_fold: points [{j0}, {j0 + L}) outside the "
-                         f"step {step}")
-    _check(xi, "fri_fold xi", dev, (d,))
-    lo, hi, h, w_inv = fold_tables(offset % P, gen % P, fold * step,
-                                   str(dev))
-    out = torch.empty((d, L), dtype=torch.int64, device=dev)
+                         f"step {layer.step}")
+    if layer.device != dev:
+        raise ValueError(f"fri_fold: the layer's tables on {layer.device}, "
+                         f"the values on {dev}")
+    shape, m, m_log = _fold_out(fold, d, L, out_fold)
+    xi, xi2 = _fold_scalars(_xi_ints(xi, d), d)
+    out = torch.empty(shape, dtype=torch.int64, device=dev)
     if L == 0:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
     _raise_on(_lib("deep").fri_fold_launch(
         groups.data_ptr(), groups.stride(0), groups.stride(1), L, j0,
-        lo.data_ptr(), hi.data_ptr(), h,
-        _mont(pow(w_inv, step, P)), _mont((P + 1) // 2),
-        xi.data_ptr(), d, fold, out.data_ptr(), stream), "fri_fold")
+        layer.lo.data_ptr(), layer.hi.data_ptr(), layer.h, layer.step_inv,
+        layer.scale, xi, xi2, d, fold, out.data_ptr(), m, m_log, stream),
+        "fri_fold")
     fri_fold.launches += 1
-    fri_fold.shapes.add((d, fold, L, fold * step, j0))
+    fri_fold.shapes.add((d, fold, L, layer.size, j0))
     return out
 
 

@@ -206,40 +206,32 @@ class ShardedProver(Prover):
         rows[runs] = got
         return rows.reshape(fold * d, L)
 
-    def _fold_group(self, rows, xi, o: int, gw: int, size: int, fold: int):
+    def _fold_group(self, rows, xi, layer):
         """The fold of this rank's leaves (rows from _fri_group) -> its
         block [d, L] of the folded layer: one fri_fold launch on the values
         at the global positions j0 + j + t * size/fold, j0 = rank * L."""
         d, L = self.d, rows.shape[-1]
-        return K.fri_fold(rows.reshape(fold, d, L), xi, o, gw,
-                          j0=self.rank * L, step=size // fold)
+        return K.fri_fold(rows.reshape(layer.fold, d, L), xi, layer,
+                          j0=self.rank * L)
 
     def _fri_layers(self, coin, cur, ck):
-        """As Prover._fri_layers on the DEEP block cur [d, bn/D]; layers of
-        fewer than D leaves run replicated on the gathered values."""
-        opts = self.opts
+        """As Prover._fri_layers on the DEEP block cur [d, bn/D]; from the
+        first layer of fewer than D leaves on, Prover._fri_layers on the
+        gathered values, on every rank alike."""
         fri_layers = []
-        size, o, gw = self.bn, self.offset, self.gen_big
-        fold = opts.fri_folding
-        sharded = True
-        while size > opts.fri_max_remainder:
-            if sharded and (size // fold) % self.D:
-                cur, sharded = self._gather(cur), False
-            if sharded:
-                rows = self._fri_group(cur, size, fold)
-                tree = self.commit(rows)
-            else:
-                rows = FRI.leaf_rows(cur, fold)
-                tree = Prover.commit(self, rows)
+        fold = self.opts.fri_folding
+        for i, layer in enumerate(self.fri_plan):
+            if (layer.size // fold) % self.D:
+                tail, rem = Prover._fri_layers(self, coin, self._gather(cur),
+                                               None, first=i)
+                return fri_layers + tail, rem
+            rows = self._fri_group(cur, layer.size, fold)
+            tree = self.commit(rows)
             coin.reseed(tree.root())
-            xi = F.from_ints(coin.draw_ext(self.d), self.device)
-            cur = (self._fold_group(rows, xi, o, gw, size, fold) if sharded
-                   else FRI.fold(cur, xi, o, gw, fold))
-            fri_layers.append(FRI.FriLayer(tree, size, o, gw, rows))
-            size //= fold
-            o = pow(o, fold, F.P)
-            gw = pow(gw, fold, F.P)
-        return fri_layers, (self._gather(cur) if sharded else cur)
+            cur = self._fold_group(rows, coin.draw_ext(self.d), layer)
+            fri_layers.append(FRI.FriLayer(tree, layer.size, layer.offset,
+                                           layer.gen, rows))
+        return fri_layers, self._gather(cur)
 
     def _grind(self, coin):
         """Rank 0 searches; the nonce is broadcast."""

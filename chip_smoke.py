@@ -108,10 +108,13 @@ timed alone),
 
 the proof's tail alone: the ood, deep and fri_fold kernels (csrc/deep.cu)
 bit for bit against their plain versions at the transaction paths' shapes
-and timed, and phase_ood, phase_deep and the FRI folds of the 128- and
-1024-transaction paths (base and cubic; AIR tables, random inputs, no
-witness) apart from the coin draws, through the kernels and through the
-PyTorch route they replaced (~1 minute of script with the build), and
+and timed (fri_fold in both output modes), and phase_ood, phase_deep and
+the FRI folds of the 128- and 1024-transaction paths (base and cubic; AIR
+tables, random inputs, no witness) apart from the coin draws, through the
+kernels and through the PyTorch route they replaced, the folds also as
+a loop copying every layer's rows runs them, and one warm FRI
+phase of the cubic 128-transaction prover under torch.profiler (~1.5
+minutes of script with the build), and
 
     python3 chip_smoke.py --hashes [blake3|sha256|sha3 ...]
 
@@ -258,8 +261,12 @@ LDE_BIG = (94, 1 << 20, 8)
 # 2^18 points; fri_fold (d, fold, L, layer size, j0) on every layer of
 # both proofs, fold 4 down to 256 values, and on the ranks' blocks of
 # every sharded layer of both (2^20 .. 2^10 and 2^23 .. 2^9 values, L a
-# sixteenth from r L). The first of each *_TIMED is the row of the
-# kernels line (the cubic 128-transaction proof's).
+# sixteenth from r L), with the layers below (2^8 .. 2^4 values, rows of
+# the next layer's leaves of 16 .. 1 points); FOLD_MORE the other degree
+# and fold and a rank's one-point block. Each fri_fold
+# shape is checked in both output modes, the values [d, L] and the next
+# layer's leaf rows. The first of each *_TIMED is the row of the kernels
+# line (the cubic 128-transaction proof's).
 TAIL_W, TAIL_K, TAIL_RANKS = 94, 8, 4
 OOD_MAIN = tuple((d, TAIL_W, TAIL_K, m, 0) for m in (1 << 17, 1 << 20)
                  for d in (1, 3)) + tuple(
@@ -268,10 +275,13 @@ OOD_MAIN = tuple((d, TAIL_W, TAIL_K, m, 0) for m in (1 << 17, 1 << 20)
 DEEP_MAIN = tuple((d, TAIL_W, TAIL_K, S) for S in (1 << 20, 1 << 18)
                   for d in (1, 3))
 FOLD_MAIN = tuple((d, 4, size // 4, size, 0) for size in
-                  (1 << e for e in range(9, 24)) for d in (1, 3)) + tuple(
+                  (1 << e for e in range(4, 24)) for d in (1, 3)) + tuple(
     (d, 4, size // 16, size, r * size // 16) for size in
     (1 << e for e in range(9, 24)) for r in range(TAIL_RANKS)
     for d in (1, 3))
+FOLD_MORE = tuple((d, f, size // f, size, 0) for d in (1, 2, 3)
+                  for f in (2, 4) for size in (1 << 8, 1 << 20)) + tuple(
+    (3, 4, 1, 4 * TAIL_RANKS, r) for r in range(TAIL_RANKS))
 OOD_TIMED = ((3, TAIL_W, TAIL_K, 1 << 17, 0), (1, TAIL_W, TAIL_K, 1 << 17, 0),
              (1, TAIL_W, TAIL_K, 1 << 20, 0), (3, TAIL_W, TAIL_K, 1 << 20, 0))
 DEEP_TIMED = ((3, TAIL_W, TAIL_K, 1 << 20), (1, TAIL_W, TAIL_K, 1 << 20))
@@ -2584,21 +2594,35 @@ def _deep_cost(d, w, k, S, old=False):
     return nbytes, S * epi, S * prods * 64 * 2
 
 
-def _fold_cost(d, fold, L):
+def _fold_cost(d, fold, L, old=False):
     """Bytes (fold d values read, d written a point) and 32-bit multiplies
-    of fri_fold: a radix-2 fold is 2 d + 1 Montgomery multiplies and one
-    extension multiply; fold 4 three of them, 1/x from one table product
-    (and one more for the second pair, one squaring for x^2)."""
+    of fri_fold: 1/x from one table product; fold 2 then 2 d Montgomery
+    multiplies (by 1/x, and the one 1/2) and one extension multiply by xi;
+    fold 4 1/(x w^step) and 1/x^2 (a squaring), 4 d Montgomery multiplies
+    and three extension multiplies by xi or xi^2, each a constant: d sums
+    of d products, each reduced once (csrc/deep.cu fold_point). `old`:
+    the count of radix-2 folds in turn, each 2 d + 1 Montgomery multiplies
+    and one extension multiply, fold 4 three of them, and xi^2 an
+    extension multiply a point."""
     ext = _ext_muls(d)
-    halves = fold - 1
-    per = halves * ((2 * d + 1) * MULS_PER_MMUL + ext) \
-        + (MULS_PER_MMUL if fold == 2 else 3 * MULS_PER_MMUL + ext)
+    if old:
+        halves = fold - 1
+        per = halves * ((2 * d + 1) * MULS_PER_MMUL + ext) \
+            + (MULS_PER_MMUL if fold == 2 else 3 * MULS_PER_MMUL + ext)
+        return 8 * d * L * (fold + 1), L * per
+    by_const = MULS_PER_MMUL if d == 1 else \
+        d * d * MULS_PER_MAC + d * MULS_PER_REDC
+    if fold == 2:
+        per = (2 * d + 1) * MULS_PER_MMUL + by_const
+    else:
+        per = (4 * d + 2) * MULS_PER_MMUL + MULS_PER_MSQR + 3 * by_const
     return 8 * d * L * (fold + 1), L * per
 
 
 def _tail_inputs(rand, name, shape):
     """Random inputs of a recorded shape: (args, kwargs) of the wrapper."""
     from certificate_stark_tpu_torch.ops import field as F
+    from certificate_stark_tpu_torch.ops import kernels as K
     from certificate_stark_tpu_torch.utils import poly_host as PH
     if name == "ood":
         d, w, k, m, s = shape
@@ -2609,21 +2633,34 @@ def _tail_inputs(rand, name, shape):
                 rand(d, w), rand(d, k), rand(d, w), rand(d, w),
                 rand(d, k)), {}
     d, fold, L, size, j0 = shape
-    if j0 == 0 and size == fold * L:   # a whole layer: [d, n] regrouped
-        groups = rand(d, size).reshape(d, fold, L).transpose(0, 1)
-    else:                              # a rank's leaf rows
-        groups = rand(fold, d, L)
-    return (groups, rand(d), F.GENERATOR, PH.root_of_unity(size)), dict(
-        j0=j0, step=size // fold)
+    # a whole layer's leaf rows, or a rank's; xi as the coin draws it
+    groups = rand(fold, d, L)
+    layer = K.FoldLayer(F.GENERATOR, PH.root_of_unity(size), size, fold,
+                        groups.device)
+    return (groups, rand(d).tolist(), layer), dict(j0=j0)
 
 
 def _tail_plain(K, name, args, kw, out):
     """max |kernel - plain| of one call, the plain version on ood's column
     groups or deep's point slices (their temporaries are many times the
-    input)."""
+    input); fri_fold in both output modes: `out` the values [d, L], and
+    the kernel's leaf rows of folding `fold` against the plain version's
+    (engine/fri.py leaf_rows of its values) where L / fold is a power of
+    two."""
+    from certificate_stark_tpu_torch.engine import fri as FRI
+    if name == "fri_fold":
+        fold, _, L = args[0].shape
+        m = L // fold
+        rows = K.fri_fold(*args, out_fold=fold, **kw) \
+            if L % fold == 0 and m & (m - 1) == 0 else None
+        with K.plain_versions():
+            exp = K.fri_fold(*args, **kw)
+        err = int((out - exp).abs().max())
+        if rows is not None:
+            err = max(err, int((rows - FRI.leaf_rows(exp, fold)).abs()
+                               .max()))
+        return err
     with K.plain_versions():
-        if name == "fri_fold":
-            return int((out - K.fri_fold(*args, **kw)).abs().max())
         if name == "ood":
             coef, h, pts, s = args
             w, k, G = coef.shape[0], h.shape[1], TAIL_PLAIN_COLS
@@ -2651,17 +2688,20 @@ def phase_tail(dev, shapes=None):
     plain versions on random inputs at every shape in `shapes` (the
     wrappers' records of the paths run, the sharded ranks' among them:
     {"ood": {(d, w, k, m, s)}, "deep": {(d, w, k, S)}, "fri_fold": {(d,
-    fold, L, size, j0)}}) and at OOD_MAIN, DEEP_MAIN, FOLD_MAIN; deep also
-    with domain points equal to z (d = 1), whose values must be 0. Then
-    each timed (CUDA events; a call as the prover calls it, and on the
-    device alone from a CUDA graph) at its *_TIMED shapes beside its
-    bound, the plain version's time at the row's shape, and the ptxas
-    report (every instantiation). Returns the three rows of the kernels
-    line."""
+    fold, L, size, j0)}}) and at OOD_MAIN, DEEP_MAIN, FOLD_MAIN and
+    FOLD_MORE, fri_fold in both output modes; deep also with domain points
+    equal to z (d = 1), whose values must be 0. Then each timed (CUDA
+    events; a call as the prover calls it, and on the device alone from a
+    CUDA graph) at its *_TIMED shapes beside its bound by the kernel's
+    count and by the earlier one (`old`), the plain version's time at the
+    row's shape, and the ptxas report (every instantiation); fri_fold also
+    writing the next layer's leaf rows (`ms_rows`, `device_ms_rows`).
+    Returns the three rows of the kernels line."""
     from certificate_stark_tpu_torch.ops import kernels as K
     rand = _randoms(dev)
     fns = {"ood": K.ood, "deep": K.deep, "fri_fold": K.fri_fold}
-    main = {"ood": OOD_MAIN, "deep": DEEP_MAIN, "fri_fold": FOLD_MAIN}
+    main = {"ood": OOD_MAIN, "deep": DEEP_MAIN,
+            "fri_fold": FOLD_MAIN + FOLD_MORE}
     err = {name: 0 for name in fns}
     count = {name: 0 for name in fns}
     t0 = time.perf_counter()
@@ -2703,11 +2743,16 @@ def phase_tail(dev, shapes=None):
             ("deep", DEEP_TIMED, lambda s, old=False: _deep_cost(*s, old),
              "certificate_stark_tpu/engine/prover.py:802",
              ("deep_kernelILi1E", "deep_kernelILi2E", "deep_kernelILi3E")),
-            ("fri_fold", FOLD_TIMED, lambda s: _fold_cost(*s[:3]),
+            ("fri_fold", FOLD_TIMED,
+             lambda s, old=False: _fold_cost(*s[:3], old),
              "certificate_stark_tpu/engine/prover.py:1088",
              tuple(f"fri_fold_kernelILi{d}ELi{f}E" for d in (1, 2, 3)
                    for f in (2, 4)))):
         uses = {k: _ptxas_usage("deep", k) for k in kern}
+        for u in uses.values() if name == "fri_fold" else ():
+            if u.get("registers"):  # blocks of 256 threads an SM resident
+                u["blocks_per_sm"] = min(
+                    8, 65536 // (256 * 8 * -(-u["registers"] // 8)))
         log(f"{name}: ptxas " + "; ".join(f"{k} {u}" for k, u in
                                           uses.items()))
         by_shape = []
@@ -2720,9 +2765,14 @@ def phase_tail(dev, shapes=None):
             bnd, by = bound_ms(*cost(shape))
             entry = dict(shape=list(shape), ms=ms, device_ms=dev_ms,
                          bound_ms=bnd, bound_by=by)
-            if name != "fri_fold":   # PR 18's count, for its shares
-                entry["bound_ms_old"], entry["bound_by_old"] = bound_ms(
-                    *cost(shape, True))
+            # the earlier count, for its shares
+            entry["bound_ms_old"], entry["bound_by_old"] = bound_ms(
+                *cost(shape, True))
+            if name == "fri_fold":   # into the next layer's leaf rows
+                to_rows = lambda: fn(*args, out_fold=shape[1],  # noqa: E731
+                                     **kw)
+                entry["ms_rows"] = cuda_ms(to_rows, 5)
+                entry["device_ms_rows"] = graph_ms(to_rows, 10)
             if shape == timed[0]:
                 torch.cuda.empty_cache()
                 _plain_timed(call)
@@ -2734,6 +2784,9 @@ def phase_tail(dev, shapes=None):
                 + (f", PR 18's bound {entry['bound_ms_old']:.4f} ms "
                    f"({entry['bound_by_old']})"
                    if "bound_ms_old" in entry else "")
+                + (f"; into leaf rows: a call {entry['ms_rows']:.4f} ms, "
+                   f"device {entry['device_ms_rows']:.4f} ms"
+                   if "ms_rows" in entry else "")
                 + (f", plain {entry['plain_ms']:.1f} ms"
                    if "plain_ms" in entry else ""))
             del args, kw, call
@@ -2758,7 +2811,13 @@ def _tail_limits(K, rand, dev):
     K.DEEP_MAX_K, d = 3) and ood as wide, on random values, on p - 1 and
     on the canonical value with the most bytes 0xFF (the largest sums of
     byte products), all bit for bit against their plain versions; deep
-    refusing one column more of either. Returns a line for the log."""
+    refusing one column more of either; fri_fold on p - 1 (values and xi)
+    at 2^20 -> 2^18 points, d = 1, 3, in both output modes, and from a
+    strided view of the layer's values (the route before the rows
+    output) and from a view at
+    an odd offset. Returns a line for the log."""
+    from certificate_stark_tpu_torch.utils import poly_host as PH
+
     def full(v):
         return lambda *shape: torch.full(shape, v, dtype=torch.int64,
                                          device=dev)
@@ -2777,6 +2836,21 @@ def _tail_limits(K, rand, dev):
               f"d {d}")
         checks += 2
         del args
+        size = 1 << 20
+        layer = K.FoldLayer(K.P - 1 if d == 3 else 7,
+                            PH.root_of_unity(size), size, 4, dev)
+        vals = rand(d, size)
+        views = (worst(4, d, size // 4),
+                 vals.reshape(d, 4, size // 4).transpose(0, 1),
+                 rand(4 * d * size // 4 + 1)[1:].reshape(4, d, size // 4))
+        for xi, groups in zip(([K.P - 1] * d, rand(d).tolist(),
+                               rand(d).tolist()), views):
+            args = (groups, xi, layer)
+            e = _tail_plain(K, "fri_fold", args, {}, K.fri_fold(*args))
+            check(e == 0, f"fri_fold differs from its plain version on "
+                  f"p - 1 or a view, d {d}")
+            checks += 1
+        del vals, views, args
     W, Kc, S = K.DEEP_MAX_W, K.DEEP_MAX_K, 1 << 14
     for fill in (rand, worst, full(0x40FFFFFFFFFFFFFF)):
         args = (fill(W, S), fill(3, Kc, S), rand(S), rand(3, 3),
@@ -2799,8 +2873,8 @@ def _tail_limits(K, rand, dev):
         except ValueError:
             continue
         check(False, f"deep took w = {w}, k = {k}")
-    return (f"p - 1, the most bytes 0xFF and w = {W}, k = {Kc}: {checks} "
-            f"checks, "
+    return (f"p - 1, the most bytes 0xFF, fri_fold's views and w = {W}, "
+            f"k = {Kc}: {checks} checks, "
             f"bit for bit; deep refuses w = {W + 1} and k = {Kc + 1}")
 
 
@@ -2829,7 +2903,11 @@ def _tail_spans(prover, what):
     events, and the host wall of one synchronized call) through the
     kernels and through the PyTorch route they replaced
     (_tail_before_kernels), with its launches and the peak device memory
-    it adds."""
+    it adds. The FRI folds run as the prover runs them (the first layer's
+    leaf rows copied from the DEEP values, each fold writing the next
+    layer's rows, the last one the remainder) and, through the kernels
+    only, as a loop that copies every layer's rows (each fold reading a
+    strided view of the layer's values)."""
     from certificate_stark_tpu_torch.engine import fri as FRI
     from certificate_stark_tpu_torch.ops import kernels as K
     rand = _randoms(prover.device)
@@ -2838,26 +2916,36 @@ def _tail_spans(prover, what):
     lde, h_lde = rand(w, bn), rand(d, k, bn)
     oods = prover.phase_ood(coeffs, h_coeffs, z)
     g = (rand(d, w), rand(d, w), rand(d, k))
-    evals, xi = rand(d, bn), rand(d)
-    opts = prover.opts
+    evals, xi = rand(d, bn), rand(d).tolist()
+    fold, plan = prover.opts.fri_folding, prover.fri_plan
 
     def folds():
-        cur, size, o, gw = evals, bn, prover.offset, prover.gen_big
-        while size > opts.fri_max_remainder:
-            cur = FRI.fold(cur, xi, o, gw, opts.fri_folding)
-            size //= opts.fri_folding
-            o, gw = (pow(o, opts.fri_folding, K.P),
-                     pow(gw, opts.fri_folding, K.P))
+        rows = FRI.leaf_rows(evals, fold)
+        for i, layer in enumerate(plan):
+            rows = FRI.fold(rows, xi, layer,
+                            0 if i + 1 == len(plan) else fold)
+        return rows
+
+    def folds_copying():
+        cur = evals
+        for layer in plan:
+            FRI.leaf_rows(cur, fold)
+            cur = K.fri_fold(cur.reshape(d, fold, -1).transpose(0, 1), xi,
+                             layer)
         return cur
 
     out = {}
-    for label, fn in (
-            ("phase_ood", lambda: prover.phase_ood(coeffs, h_coeffs, z)),
+    for label, fn, routes in (
+            ("phase_ood", lambda: prover.phase_ood(coeffs, h_coeffs, z),
+             ("kernels", "before")),
             ("phase_deep", lambda: prover.phase_deep(lde, h_lde, *oods, *g,
-                                                     z)),
-            ("FRI folds", folds)):
+                                                     z),
+             ("kernels", "before")),
+            ("FRI folds", folds, ("kernels", "before")),
+            ("FRI folds, copying every layer", folds_copying,
+             ("kernels",))):
         res = {}
-        for route in ("kernels", "before"):
+        for route in routes:
             ctx = _tail_before_kernels() if route == "before" \
                 else contextlib.nullcontext()
             with ctx:
@@ -2878,22 +2966,58 @@ def _tail_spans(prover, what):
             res[route] = dict(ms=ms, wall_ms=wall, peak_mib=peak,
                               launches=counts)
         out[label] = res
-        kr, br = res["kernels"], res["before"]
+        kr, br = res["kernels"], res.get("before")
         log(f"  {what}, {label} apart from the coin draws: kernels "
-            f"{kr['ms']:.2f} ms (wall {kr['wall_ms']:.2f} ms, "
-            f"+{kr['peak_mib']:.0f} MiB, launches {kr['launches']}); the "
-            f"PyTorch route before them {br['ms']:.2f} ms (wall "
-            f"{br['wall_ms']:.2f} ms, +{br['peak_mib']:.0f} MiB, launches "
-            f"{br['launches']})")
+            f"{kr['ms']:.3f} ms (wall {kr['wall_ms']:.3f} ms, "
+            f"+{kr['peak_mib']:.0f} MiB, launches {kr['launches']})"
+            + (f"; the PyTorch route before them {br['ms']:.2f} ms (wall "
+               f"{br['wall_ms']:.2f} ms, +{br['peak_mib']:.0f} MiB, "
+               f"launches {br['launches']})" if br else ""))
     del coeffs, h_coeffs, lde, h_lde, evals
     torch.cuda.empty_cache()
     return out
 
 
+def _fri_profile(prover, what):
+    """One warm FRI phase of `prover` (Prover._fri_layers on random DEEP
+    values: the commits, the coin's reseeds and draws and the folds) under
+    torch.profiler: its wall, and the device's ops by name with their
+    launches; PyTorch's copy kernels (`direct_copy_kernel_cuda`, a
+    `leaf_rows` copy) apart from the memory copies (the roots read
+    back)."""
+    from torch.profiler import ProfilerActivity, profile
+    from certificate_stark_tpu_torch.engine.coin import RandomCoin
+    deep = _randoms(prover.device)(prover.d, prover.bn)
+
+    def phase():
+        layers, rem = prover._fri_layers(RandomCoin(prover.hasher, [1, 2]),
+                                         deep, None)
+        torch.cuda.synchronize()
+        return layers, rem
+    phase()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        layers = phase()[0]
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = _device_by_name(prof)
+    copies = {k: v for k, v in by_name.items() if "copy_kernel" in k}
+    dev_ms = sum(t for t, _ in by_name.values())
+    log(f"  {what}, one warm FRI phase ({len(layers)} layers) under "
+        f"torch.profiler: wall {wall:.2f} ms, device {dev_ms:.3f} ms, "
+        f"{sum(c for _, c in by_name.values())} device ops; PyTorch copies "
+        f"{sum(c for _, c in copies.values())}")
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+        log(f"    {t:8.4f} ms {c:4d}x {name[:100]}")
+    return dict(layers=len(layers), wall_ms=wall, device_ms=dev_ms,
+                ops={k[:100]: [t, c] for k, (t, c) in by_name.items()},
+                copies=sum(c for _, c in copies.values()))
+
+
 def phase_tail_paths(dev):
     """`--deep`'s spans: _tail_spans on provers of the 128- and
     1024-transaction AIRs (tables only, no witness), with bench.py's
-    options and the example CLI's cubic ones."""
+    options and the example CLI's cubic ones; _fri_profile of the cubic
+    128-transaction one."""
     from certificate_stark_tpu_torch.engine.options import ProofOptions
     from certificate_stark_tpu_torch.engine.prover import Prover
     from certificate_stark_tpu_torch.models import transaction as TX
@@ -2907,6 +3031,9 @@ def phase_tail_paths(dev):
             prover = Prover(air, device=dev)
             out[f"{count}tx_{key}"] = _tail_spans(
                 prover, f"{count} tx, {key}")
+            if count == TX_COUNT and key == "cubic":
+                out["fri_profile"] = _fri_profile(prover,
+                                                  f"{count} tx, {key}")
             del prover
             torch.cuda.empty_cache()
     return out

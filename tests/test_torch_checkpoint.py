@@ -116,13 +116,25 @@ def test_zero_trace_resume_passes_the_jax_verifier(checkpointed_of,
 
 
 def test_context_mismatch_not_resumed(tmp_path):
-    a = Checkpointer(str(tmp_path), context=["A", 1])
+    a = Checkpointer(str(tmp_path), context=["A", 1], device="cpu")
     a.save("trace", x=torch.arange(3), n=7)
-    b = Checkpointer(str(tmp_path), context=["B", 2])
+    b = Checkpointer(str(tmp_path), context=["B", 2], device="cpu")
     assert b.load("trace") is None          # another context: ignored
-    got = Checkpointer(str(tmp_path), context=["A", 1]).load("trace")
+    got = Checkpointer(str(tmp_path), context=["A", 1],
+                       device="cpu").load("trace")
     assert torch.equal(got["x"], torch.arange(3)) and int(got["n"]) == 7
     assert got["x"].dtype == torch.int64
+
+
+def test_default_device_is_the_card(tmp_path):
+    """Like every entry point of the port, a Checkpointer made without a
+    device loads onto the card: where there is none it raises, and never
+    falls back to the CPU."""
+    if torch.cuda.is_available():
+        assert Checkpointer(str(tmp_path)).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Checkpointer(str(tmp_path))
 
 
 def test_other_statement_not_resumed(checkpointed, tmp_path):

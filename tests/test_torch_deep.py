@@ -4,6 +4,7 @@ csrc/deep.cu) on the CPU, where each wrapper runs its plain version:
 and `Prover.phase_deep` on seeded inputs (rescue chain 16, blowup 4, d = 1:
 its cubic phase_ood compiles for minutes), `fri_fold_plain` against
 engine/fri.py `fold2_ext` applied once (fold 2) and twice (fold 4) at d = 1,
+in both output modes (tests/test_torch_fri_rows.py holds d = 2, 3),
 the sharded prover's start exponent and first index block by block
 against the whole, a zero DEEP denominator mapped to 0, and the wrappers
 refusing a device that is neither the CPU nor a card. The extension
@@ -22,6 +23,7 @@ from certificate_stark_tpu.engine import fri as JFRI
 from certificate_stark_tpu.engine import prover as JPR
 from certificate_stark_tpu.engine.options import ProofOptions as JOpts
 from certificate_stark_tpu.models import rescue_chain as JRC
+from certificate_stark_tpu_torch.engine import fri as FRI
 from certificate_stark_tpu_torch.engine.options import ProofOptions
 from certificate_stark_tpu_torch.engine.prover import Prover
 from certificate_stark_tpu_torch.models import rescue_chain as RC
@@ -127,21 +129,38 @@ def test_deep_zero_denominator(chain16):
 def test_fri_fold_plain_equals_fold2_ext():
     """Fold 2: one fold2_ext; fold 4: fold2_ext with xi, then with xi^2 on
     the squared domain (d = 1 here: the cubic golden below holds d = 3,
-    whose JAX fold2_ext compiles for seconds a call)."""
+    whose JAX fold2_ext compiles for seconds a call), on random values and
+    on p - 1 everywhere (values and xi). Both output modes: the values
+    [d, L], and the next layer's leaf rows [f d, L / f] laid out as the
+    JAX prover's commit_kernel lays them (rows of 4 .. 16 points, below a
+    warp), folded from the strided values and from the layer's own leaf
+    rows."""
     d = 1
     rng = np.random.default_rng(11)
     n, o = 64, F.GENERATOR
     gw = PH.root_of_unity(n)
-    evals, xi = _rand(rng, d, n), _rand(rng, d)
-    once = JFRI.fold2_ext(_jax(evals), _jax(xi), o, gw, d)
-    xi2 = XF.ext_mul(xi[:, None], xi[:, None], d)[:, 0]
-    twice = JFRI.fold2_ext(once, _jax(xi2), o * o % F.P, gw * gw % F.P, d)
-    for fold, exp in ((2, once), (4, twice)):
-        groups = evals.reshape(d, fold, n // fold).transpose(0, 1)
-        got = K.fri_fold_plain(groups, xi, o, gw)
-        assert torch.equal(got, _port(exp))
-        # the wrapper takes the same route on the CPU
-        assert torch.equal(K.fri_fold(groups, xi, o, gw), got)
+    worst = F.from_ints([[F.P - 1] * n] * d, "cpu")
+    for evals, xi in ((_rand(rng, d, n), _rand(rng, d)),
+                      (worst, worst[:, 0].clone())):
+        once = JFRI.fold2_ext(_jax(evals), _jax(xi), o, gw, d)
+        xi2 = XF.ext_mul(xi[:, None], xi[:, None], d)[:, 0]
+        twice = JFRI.fold2_ext(once, _jax(xi2), o * o % F.P, gw * gw % F.P,
+                               d)
+        coin = F.to_ints(xi).tolist()       # as the coin draws it
+        for fold, exp in ((2, once), (4, twice)):
+            groups = evals.reshape(d, fold, n // fold).transpose(0, 1)
+            layer = K.FoldLayer(o, gw, n, fold, "cpu")
+            got = K.fri_fold_plain(groups, coin, layer)
+            assert torch.equal(got, _port(exp))
+            # the wrapper takes the same route on the CPU
+            assert torch.equal(K.fri_fold(groups, coin, layer), got)
+            rows = FRI.leaf_rows(evals, fold).reshape(fold, d, n // fold)
+            for src in (groups, rows):
+                for f in (2, 4):
+                    leaf = exp.reshape(4, d, f, n // fold // f) \
+                        .transpose(0, 2, 1, 3).reshape(4, f * d, -1)
+                    assert torch.equal(K.fri_fold(src, coin, layer,
+                                                  out_fold=f), _port(leaf))
 
 
 @pytest.mark.parametrize("D", [2, 4])
@@ -166,14 +185,15 @@ def test_sharded_blocks(D):
     for fold in (2, 4):
         size, o = 256, 7
         gw = PH.root_of_unity(size)
-        evals, xi = _rand(rng, d, size), _rand(rng, d)
+        evals, xi = _rand(rng, d, size), F.to_ints(_rand(rng, d)).tolist()
         L = size // fold // D
+        layer = K.FoldLayer(o, gw, size, fold, "cpu")
         full = K.fri_fold(evals.reshape(d, fold, size // fold)
-                          .transpose(0, 1), xi, o, gw)
+                          .transpose(0, 1), xi, layer)
         for r in range(D):
             rows = evals.reshape(d, fold, D, L)[:, :, r].transpose(0, 1) \
                 .contiguous()
-            got = K.fri_fold(rows, xi, o, gw, j0=r * L, step=size // fold)
+            got = K.fri_fold(rows, xi, layer, j0=r * L)
             assert torch.equal(got, full[:, r * L:(r + 1) * L])
 
 
